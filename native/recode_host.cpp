@@ -1,9 +1,9 @@
 // Native host kernels for pyrecode_tpu.
 //
-// TPU-native framework counterpart of the reference's CPython extension
+// Counterpart of the reference's CPython extension
 // `c_recode` (pyrecode/pyrecode.cpp + c_extensions/reader.h): the decode and
 // bit-packing hot loops that run on the *host* side of the pipeline (the
-// device side is Pallas/XLA).  Fresh implementation, word-oriented instead of
+// device side is JAX/XLA).  Fresh implementation, word-oriented instead of
 // the reference's per-bit loops:
 //
 //  * unpack_frame_sparse: scan the bit-packed binary map 64 bits at a time,
@@ -503,8 +503,8 @@ inline void length_symbol(uint32_t len, uint32_t &sym, uint32_t &extra_bits,
 
 // Serialize the RFC 1951 dynamic block header (HLIT/HDIST/HCLEN + code-length
 // code + length sequence) for literal/length lengths `llen` and the codec's
-// fixed single-distance-code table.  Factored out so the TPU entropy path can
-// obtain a bit-identical header for device-assembled token streams.
+// fixed single-distance-code table.  Factored out so the numpy reference
+// encoder (codecs/dyndeflate.py) obtains a bit-identical header.
 void write_dyn_header(BitWriter &bw, const uint8_t *llen) {
     uint8_t dlen[30] = {0};
     dlen[0] = 1;
@@ -581,93 +581,12 @@ void write_dyn_header(BitWriter &bw, const uint8_t *llen) {
 extern "C" {
 
 // Build canonical dynamic-Huffman tables from 286 literal/length frequencies.
-// (Exported so the TPU entropy path shares this exact construction —
-// tie-breaking included — making device streams byte-identical to
+// (Exported so the numpy reference encoder shares this exact construction —
+// tie-breaking included — making its streams byte-identical to
 // deflate_sparse_dyn's.)
 void dyn_tables(const uint32_t *lfreq, uint8_t *llen, uint16_t *lcode) {
     huff_lengths(lfreq, 286, 15, llen);
     huff_codes(llen, 286, lcode);
-}
-
-// (value, bit-count) token LUT in the assembly kernel's radix layout:
-// lut f32[48*32], rows 0..23 = each token's full packed value (values fit
-// 21 bits, exact in f32 — the kernel does the lookup matmul at
-// precision=HIGHEST, which reconstructs 24 mantissa bits), rows 24..47 =
-// bit counts; both laid out [idx>>5][idx&31] (idx <= 512 -> row <= 16).
-// Mirrors codecs/dyndeflate.token_luts + luts_as_radix; this sits on the
-// per-stream host step of the device entropy path, where the numpy build
-// costs ~100 us of pure call overhead.
-void token_luts_radix(const uint8_t *llen, const uint16_t *lcode,
-                      float *lut) {
-    uint32_t val[768] = {0};
-    float bct[768] = {0};
-    auto rev = [](uint32_t code, uint32_t nb) {
-        uint32_t r = 0;
-        for (uint32_t i = 0; i < nb; ++i)
-            r |= ((code >> i) & 1u) << (nb - 1 - i);
-        return r;
-    };
-    for (int v = 0; v < 256; ++v) {
-        val[v] = rev(lcode[v], llen[v]);
-        bct[v] = (float)llen[v];
-    }
-    for (uint32_t take = 3; take <= 258; ++take) {
-        uint32_t sym, eb, ev;
-        length_symbol(take, sym, eb, ev);
-        const uint32_t idx = 256 + take - 3;
-        // rev(length code) | extra value << len | implicit 1-bit distance 0
-        val[idx] = rev(lcode[sym], llen[sym]) | (ev << llen[sym]);
-        bct[idx] = (float)(llen[sym] + eb + 1);
-    }
-    for (int idx = 0; idx < 768; ++idx) {
-        lut[idx] = (float)val[idx];
-        lut[768 + idx] = bct[idx];
-    }
-}
-
-// Combined per-stream host step of the device entropy path: dynamic tables +
-// zlib/dynamic-block header + radix token LUTs + end-of-block code + exact
-// body bit count, in ONE call (the Python path made three ctypes calls plus
-// numpy post-processing per stream, ~120 us of overhead at ~25 us of work).
-// lfreq_body: 286 literal/length frequencies WITHOUT the end-of-block count.
-// hdr capacity >= 512 bytes.  info i64[4] out: {header_bits, eob_val
-// (bit-reversed), eob_len, body_bits}.
-void entropy_host_tables(const uint32_t *lfreq_body, uint8_t *hdr,
-                         float *lut, int64_t *info) {
-    uint32_t lfreq[286];
-    std::memcpy(lfreq, lfreq_body, sizeof(lfreq));
-    ++lfreq[256];  // end of block
-    uint8_t llen[286];
-    uint16_t lcode[286];
-    huff_lengths(lfreq, 286, 15, llen);
-    huff_codes(llen, 286, lcode);
-
-    BitWriter bw(hdr);
-    hdr[bw.pos++] = 0x78;
-    hdr[bw.pos++] = 0x01;
-    write_dyn_header(bw, llen);
-    info[0] = (int64_t)bw.pos * 8 + bw.fill;
-    if (bw.fill) hdr[bw.pos] = (uint8_t)bw.acc;
-
-    token_luts_radix(llen, lcode, lut);
-
-    uint32_t eob = 0;
-    for (int i = 0; i < llen[256]; ++i)
-        eob |= ((lcode[256] >> i) & 1u) << (llen[256] - 1 - i);
-    info[1] = (int64_t)eob;
-    info[2] = (int64_t)llen[256];
-
-    // exact body bits: extra bits per length code are fixed, so the
-    // histogram determines the total (drives the scatter-window preset)
-    static const uint8_t lextra[] = {0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2,
-                                     2, 2, 3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5,
-                                     0};
-    int64_t body = 0;
-    for (int i = 0; i < 257; ++i)
-        body += (int64_t)lfreq_body[i] * llen[i];
-    for (int i = 257; i < 286; ++i)
-        body += (int64_t)lfreq_body[i] * (llen[i] + lextra[i - 257] + 1);
-    info[3] = body;
 }
 
 // Serialize zlib header (2 bytes) + BFINAL/BTYPE + dynamic block header into
@@ -786,7 +705,7 @@ int64_t deflate_sparse_dyn(const uint8_t *src, uint64_t n, uint8_t *out,
 
 }  // extern "C"
 
-// ===================== TPU-rANS host codec (scheme 12) =====================
+// ===================== rANS host codec (scheme 12) =====================
 // Byte-for-byte the format of codecs/rans.py (the numpy reference): the
 // same LZ run tokenizer as deflate_sparse_dyn, 12-bit quantized order-0
 // frequencies, W interleaved rANS states (byte renormalization,
@@ -865,7 +784,7 @@ static void rans_adler(const uint8_t *src, uint64_t n, uint8_t *out4) {
 
 extern "C" {
 
-// TPU-rANS compress.  tokens: scratch of n+16 u32 (sym | ev<<10 | eb<<15).
+// rANS compress.  tokens: scratch of n+16 u32 (sym | ev<<10 | eb<<15).
 // out capacity >= n + 64 + 4*nways + 2*286.  Returns stream length.
 int64_t rans_compress(const uint8_t *src, uint64_t n, uint8_t *out,
                       uint32_t *tokens, uint32_t nways) {
@@ -1017,7 +936,7 @@ int64_t rans_compress(const uint8_t *src, uint64_t n, uint8_t *out,
     return (int64_t)p;
 }
 
-// TPU-rANS decompress.  Returns original length, or -1 on corruption /
+// rANS decompress.  Returns original length, or -1 on corruption /
 // capacity overflow.
 int64_t rans_decompress(const uint8_t *src, uint64_t len, uint8_t *out,
                         uint64_t cap) {
@@ -1134,11 +1053,10 @@ int64_t rans_decompress(const uint8_t *src, uint64_t len, uint8_t *out,
     return adler_of(out, n) == want ? (int64_t)n : -1;
 }
 
-// Reconstruct the byte stream from an ALREADY-DECODED symbol array (the
-// device rANS kernel's output) + the extra-bit stream: literals emit their
-// byte, matches memset-copy the previous byte (all distance 1).  This is
-// the host half of codecs/rans.rans_decompress_device — memcpy-class, so
-// the device decode path is not bottlenecked by numpy per-token passes.
+// Reconstruct the byte stream from an ALREADY-DECODED symbol array + the
+// extra-bit stream: literals emit their byte, matches memset-copy the
+// previous byte (all distance 1).  Memcpy-class, so the numpy decoder
+// (codecs/rans._reconstruct_bytes) is not bottlenecked by per-token passes.
 // Returns n on success, -1 on malformed input (bounds are validated the
 // same way as rans_decompress above; the adler check stays in Python).
 int64_t rans_reconstruct(const int32_t *syms, uint64_t m,
@@ -1175,7 +1093,7 @@ int64_t rans_reconstruct(const int32_t *syms, uint64_t m,
 }  // extern "C"
 
 // ---------------------------------------------------------------------------
-// TPU-rANS SYMBOL mode (flags bit1): the payload is an LSB-first packed
+// rANS SYMBOL mode (flags bit1): the payload is an LSB-first packed
 // stream of sym_bits-wide values coded DIRECTLY as symbols over a sparse
 // 12-bit-quantized frequency table — no LZ layer, no extra bits.  Format and
 // byte order exactly mirror codecs/rans.compress_symbols (the numpy

@@ -1,13 +1,13 @@
-"""pyrecode_tpu — a TPU-native ReCoDe framework.
+"""pyrecode_tpu — the ReCoDe codec on JAX.
 
 A from-scratch reimplementation of the ReCoDe ("Reduced Compressed Description")
 codec for high-frame-rate direct electron-detector data (Datta et al., Nat Commun
-12, 664 (2021)), designed TPU-first:
+12, 664 (2021)), built around batched device kernels:
 
 * the reduction stage (dark subtraction, thresholding, connected-component
   labeling, centroiding) and all bit-packing paths run as batched, fused
-  JAX/XLA/Pallas kernels on TPU — frames are processed in batches, data-parallel
-  over a `jax.sharding.Mesh`;
+  JAX programs that XLA compiles for the accelerator (an NVIDIA GPU) —
+  frames are processed in batches, data-parallel over a `jax.sharding.Mesh`;
 * the container layer (ReCoDe v0.1/v0.2 headers, per-frame metadata, seek
   tables, part-file merge) is byte-compatible with the reference implementation
   (NDLOHGRP/pyReCoDe) so files interoperate in both directions;

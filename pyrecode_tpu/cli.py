@@ -35,7 +35,8 @@ def _add_common_writer_args(p):
     p.add_argument("--max_count", type=int, default=-1,
                    help="number of chunks to process in stream mode")
     p.add_argument("--chunk_time_in_sec", type=int, default=1)
-    p.add_argument("--no_tpu", action="store_true", help="use the CPU oracle path")
+    p.add_argument("--no_device", "--no_tpu", dest="no_device", action="store_true",
+                   help="use the CPU oracle path")
 
 
 def _init_params_from(args):
@@ -46,7 +47,7 @@ def _init_params_from(args):
         directory_path=args.directory_path, calibration_filename=args.calibration_file,
         params_filename=args.params_file, validation_frame_gap=args.validation_frame_gap,
         log_filename=args.log_file, run_name=args.run_name, verbosity=args.verbosity,
-        use_tpu=not args.no_tpu, max_count=args.max_count,
+        use_device=not args.no_device, max_count=args.max_count,
         chunk_time_in_sec=args.chunk_time_in_sec)
 
 
@@ -68,7 +69,7 @@ def cmd_write(args):
         output_directory=args.out_dir, params_filename=args.params_file,
         mode=args.mode, validation_frame_gap=args.validation_frame_gap,
         log_filename=args.log_file, run_name=args.run_name,
-        verbosity=args.verbosity, use_tpu=not args.no_tpu)
+        verbosity=args.verbosity, use_device=not args.no_device)
     writer.start()
     metrics = writer.run()
     writer.close()
@@ -121,7 +122,7 @@ def cmd_bench(args):
 
 def build_parser():
     parser = argparse.ArgumentParser(prog="pyrecode-tpu",
-                                     description="TPU-native ReCoDe codec")
+                                     description="ReCoDe codec on JAX")
     sub = parser.add_subparsers(dest="command", required=True)
 
     p = sub.add_parser("server", help="run the multi-node acquisition server")

@@ -5,8 +5,8 @@ Scheme code map (reference recode_compressors.py:4-5, 82-120):
     0  zlib          1  zstandard      2  lz4 (frame)    3  snappy
     4  bz2           5  lzma           6  blosc+zlib     7  blosc+zstd
     8  blosc+lz4     9  blosc+snappy   10 blosclz        11 blosc+lz4hc
-    12 tpu-rans      (pyrecode-tpu extension: interleaved rANS whose encode
-                      AND decode run as device kernels; codecs/rans.py)
+    12 rans          (pyrecode-tpu extension: interleaved rANS, numpy
+                      reference and native coder; codecs/rans.py)
 
 Blosc variants use BITSHUFFLE, matching the reference.  zstd compresses
 through a reusable context created with ``write_content_size=False``
@@ -14,9 +14,8 @@ through a reusable context created with ``write_content_size=False``
 relies on (sizes live in the per-frame metadata, not the stream).
 
 These codecs operate on the *reduced* byte streams (bit-packed binary maps
-and packed pixel intensities).  They run on host because entropy coding is a
-bit-serial, data-dependent transform that does not map onto the TPU's vector
-units; the TPU does the reduction and packing, the host does entropy + IO.
+and packed pixel intensities).  They run on host: the device does the
+reduction and packing, the host does entropy coding + IO.
 Frame-level parallelism across host cores is provided by the writer's
 compression pool (writer.py), since all these libraries release the GIL.
 """
@@ -80,7 +79,7 @@ def uses_fallback(scheme: int) -> bool:
 _SCHEME_NAMES = {
     0: "zlib", 1: "zstandard", 2: "lz4", 3: "snappy", 4: "bzip", 5: "lzma",
     6: "blosc_zlib", 7: "blosc_zstd", 8: "blosc_lz4", 9: "blosc_snappy",
-    10: "blosclz", 11: "blosc_lz4hc", 12: "tpu_rans",
+    10: "blosclz", 11: "blosc_lz4hc", 12: "rans",
 }
 
 _SCHEME_LIBS = {
@@ -139,7 +138,7 @@ def get_codec(scheme: int, level: int = 1) -> Codec:
     if scheme == 12:
         from .. import native as _native
 
-        return Codec(12, "tpu_rans", _native.rans_compress,
+        return Codec(12, "rans", _native.rans_compress,
                      _native.rans_decompress)
     if scheme == 1:
         cctx = _zstd.ZstdCompressor(level=level, write_content_size=False)

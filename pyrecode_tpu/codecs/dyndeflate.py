@@ -1,16 +1,14 @@
-"""Shared machinery for the TPU dynamic-Huffman deflate encoder.
+"""numpy reference of the native sparse-deflate encoder (scheme 0).
 
-The device entropy stage (ops/pallas_deflate.py) reproduces the native
-sparse-deflate encoder (native/recode_host.cpp deflate_sparse_dyn) *byte for
-byte*: same repeat-run tokenization, same canonical Huffman construction
-(tables come from the same C code via :func:`pyrecode_tpu.native.dyn_tables`),
-same RFC 1951 dynamic block header, same stored-block fallback rule, same
-adler32 trailer.  The reference implementation's entropy stage is host-only
-(recode_compressors.py:103-118); here tokenize/histogram/bit-assembly run on
-the TPU and the host contributes only O(alphabet) table/header work.
+:func:`deflate_dyn_np` reproduces the native dynamic-Huffman encoder
+(native/recode_host.cpp deflate_sparse_dyn) *byte for byte*: same repeat-run
+tokenization, same canonical Huffman construction (tables come from the same
+C code via :func:`pyrecode_tpu.native.dyn_tables`), same RFC 1951 dynamic
+block header, same stored-block fallback rule, same adler32 trailer.  The
+tokenizer is shared with the scheme-12 rANS codec (codecs/rans.py).
 
-The key re-formulation that makes the C encoder's sequential run loop
-data-parallel: every input byte emits AT MOST ONE token, decidable from
+The tokenizer is written as per-byte data-parallel math: every input byte
+emits AT MOST ONE token, decidable from
  * ``p``  — offset within its run (needs only a *backward* scan), and
  * ``d``  — distance to the run's end (needs only a *bounded, <=521-byte
    forward* window, because the C encoder's take-adjustment only perturbs the
@@ -25,11 +23,6 @@ Rules (mirroring deflate_sparse_dyn's tokenizer exactly):
      q % 258 == 0 and 3 <= d <= 258     -> match take=d     (final take)
      q % 258 == 255 and d in {4, 5}     -> match take=d     (post-255 tail)
      otherwise                          -> no token (covered by a match)
-
-This module holds the numpy reference of that per-byte math (the oracle the
-Pallas kernels are tested against), the code->(value,bits) LUT builders, and
-the host-side stream finishing (end-of-block splice, alignment, stored-block
-fallback, adler trailer).
 """
 
 from __future__ import annotations
@@ -61,9 +54,8 @@ for _i in range(256):
 def bit_reverse(codes: np.ndarray, nbits: np.ndarray) -> np.ndarray:
     """Reverse the low ``nbits`` bits of each code (Huffman codes are written
     MSB-first into an LSB-first stream).  Codes are <= 16 bits; a byte LUT
-    reverses the full 16-bit word, then a shift drops the unused high bits
-    (this runs per stream in the device-entropy host step, so it is
-    allocation-light on purpose)."""
+    reverses the full 16-bit word, then a shift drops the unused high bits.
+    """
     codes = np.asarray(codes, dtype=np.uint32)
     nbits = np.asarray(nbits, dtype=np.uint32)
     rev16 = (_REV8[codes & 255] << 8) | _REV8[codes >> 8]
@@ -81,7 +73,6 @@ def token_luts(llen: np.ndarray, lcode: np.ndarray) -> Tuple[np.ndarray, np.ndar
 
     A literal's value is its bit-reversed code; a match's value packs
     rev(length code) | extra_value << len | 0 (the 1-bit distance code).
-    Values fit 21 bits, so float32 matmuls stay exact.
     """
     llen = np.asarray(llen, dtype=np.int64)
     lcode = np.asarray(lcode, dtype=np.int64)
@@ -106,7 +97,7 @@ def token_luts(llen: np.ndarray, lcode: np.ndarray) -> Tuple[np.ndarray, np.ndar
 
 
 def tokenize_bytes_np(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """Per-byte token decision (numpy reference for the Pallas kernel).
+    """Per-byte token decision (see the rules in the module docstring).
 
     Returns (lut_idx i32[n], sym i32[n]): the token LUT index per byte
     (NO_TOKEN for covered bytes) and the literal/length symbol (0..285, or -1
@@ -162,91 +153,6 @@ def histogram_np(sym: np.ndarray) -> np.ndarray:
     return freq
 
 
-def gap_token_count(G: np.ndarray) -> np.ndarray:
-    """Number of tokens coding a maximal zero-run of ``G`` bytes.
-
-    Closed form of the per-byte rules above evaluated over one run:
-    G <= 3 -> G literals; G >= 4 -> 1 leading literal + j258 take-258
-    matches + (2 if the remainder is 259/260 — a 255-take then its 4/5
-    tail — else 1) final matches.
-    """
-    G = np.asarray(G, dtype=np.int64)
-    j258 = np.maximum(0, (G - 262) // 258 + 1)
-    rem_after = G - 1 - 258 * j258
-    tail = np.where(rem_after >= 259, 2, 1)
-    return np.where(G <= 3, G, 1 + j258 + tail).astype(np.int64)
-
-
-def gap_token_value(G: np.ndarray, j: np.ndarray) -> np.ndarray:
-    """LUT index of the ``j``-th token (0-based) of a ``G``-byte zero run.
-
-    j == 0 (or any j < G for G <= 3) -> literal 0; otherwise match take
-    per the run schedule: 258-takes, then 255 + its 4/5 tail, or the
-    direct final take.  Callers guarantee 0 <= j < gap_token_count(G).
-    """
-    G = np.asarray(G, dtype=np.int64)
-    j = np.asarray(j, dtype=np.int64)
-    j258 = np.maximum(0, (G - 262) // 258 + 1)
-    rem_after = G - 1 - 258 * j258
-    # match ordinal (1-based): j itself (slot 0 is the leading literal)
-    take = np.where(j <= j258, 258,
-                    np.where(rem_after >= 259,
-                             np.where(j == j258 + 1, 255, rem_after - 255),
-                             rem_after))
-    lut = np.where((G <= 3) | (j == 0), 0, 256 + take - 3)
-    return lut.astype(np.int32)
-
-
-def tokens_from_pairs_np(idx: np.ndarray, val: np.ndarray, n: int
-                         ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
-    """Dense deflate token stream straight from (byte index, byte value)
-    pairs of the NONZERO bitmap bytes — the numpy reference for the
-    positions-driven device tokenizer (no 2 MB byte scan; work scales with
-    foreground bytes, 12x fewer at 1% occupancy).
-
-    ``idx`` strictly ascending nonzero-byte indices, ``val`` their values
-    (> 0), ``n`` total bitmap bytes.  Returns (lut_idx, sym) dense token
-    arrays identical to compacting :func:`tokenize_bytes_np`'s per-byte
-    output, or ``None`` when a nonzero run of length >= 4 exists (equal
-    values at >= 4 consecutive indices — those runs emit matches, which
-    this per-isolated-byte formulation does not model; callers fall back
-    to the byte tokenizer.  Nonzero runs of length <= 3 are all literals
-    under the run < 4 rule, so they need no special casing).
-    """
-    idx = np.asarray(idx, dtype=np.int64)
-    val = np.asarray(val, dtype=np.int64)
-    if idx.size >= 4:
-        # a nonzero run of length >= 4 <=> 3 consecutive "continues the
-        # run" flags somewhere
-        run = (idx[1:] == idx[:-1] + 1) & (val[1:] == val[:-1])
-        if np.any(run[2:] & run[1:-1] & run[:-2]):
-            return None
-    # element list: each nonzero byte preceded by its zero gap, plus one
-    # sentinel element for the tail gap (no literal of its own)
-    gaps = np.diff(np.concatenate(([-1], idx, [n]))) - 1  # per element + tail
-    gap_counts = gap_token_count(gaps)
-    t = gap_counts + 1
-    t[-1] -= 1                                  # sentinel: gap tokens only
-    offs = np.concatenate(([0], np.cumsum(t)))
-    total = int(offs[-1])
-    lut_idx = np.zeros(total, dtype=np.int32)
-    sym = np.zeros(total, dtype=np.int32)
-    for i in range(gaps.size):
-        G = int(gaps[i])
-        o = int(offs[i])
-        tc = int(gap_counts[i])
-        if tc:
-            jj = np.arange(tc)
-            lv = gap_token_value(G, jj)
-            lut_idx[o: o + tc] = lv
-            sym[o: o + tc] = np.where(
-                lv < 256, lv, 257 + length_code(lv - 256 + 3))
-        if i < idx.size:
-            lut_idx[o + tc] = val[i]
-            sym[o + tc] = val[i]
-    return lut_idx, sym
-
-
 # ------------------------------------------------------------------- assembly
 
 
@@ -279,22 +185,6 @@ def assemble_bits_np(vals: np.ndarray, nbits: np.ndarray, phase: int = 0,
     return out, total
 
 
-def quantize_bound(n: int, ch: int) -> int:
-    """Round ``n`` up to the next quarter-octave grid point that is a
-    multiple of ``ch``.
-
-    Token/output bounds are static kernel shapes, so every distinct bound
-    costs one (cached) compile; pow2 rounding bounds the shape count but
-    wastes up to 2x assembly grid steps on slots that hold no token.  A
-    {1, 1.25, 1.5, 1.75}x2^k grid keeps <= 4 shapes per octave while capping
-    the slack at 25%.
-    """
-    n = max(int(n), 1)
-    m = max((n - 1).bit_length() - 1, 0)
-    step = max(1 << max(m - 2, 0), ch)
-    return max(-(-n // step) * step, ch)
-
-
 def stored_blocks(raw: bytes, n: int) -> bytes:
     """RFC 1951 stored (btype 00) blocks wrapping ``raw[:n]`` + zlib header."""
     pieces = [b"\x78\x01"]
@@ -314,7 +204,7 @@ def stored_blocks(raw: bytes, n: int) -> bytes:
 def finish_stream(hdr_bytes: np.ndarray, hdr_bits: int, body: np.ndarray,
                   body_bits: int, adler: int, n: int,
                   raw: Optional[bytes] = None) -> bytes:
-    """Assemble the final zlib stream from header + device-packed body.
+    """Assemble the final zlib stream from header + packed body.
 
     ``body`` starts at the header's last partial byte (bit offset
     ``hdr_bits % 8`` within its first byte) and already contains the
@@ -328,306 +218,6 @@ def finish_stream(hdr_bytes: np.ndarray, hdr_bits: int, body: np.ndarray,
     if len(stream) > stored_size and raw is not None:
         stream = stored_blocks(raw, n)
     return stream + int(adler).to_bytes(4, "big")
-
-
-def luts_as_radix(llen: np.ndarray, lcode: np.ndarray) -> np.ndarray:
-    """Token (value, bit-count) LUT laid out (idx>>5, idx&31) for the
-    assembly kernel's bilinear lookup: one (48, 32) float32 array, rows
-    0..23 the full token values, rows 24..47 the bit counts.
-
-    Values fit 21 bits, so they are exact f32; the kernel does the lookup
-    matmul at precision=HIGHEST (bf16x6 reconstructs full f32 precision),
-    verified exact on hardware by tools/probe_f32dot.py.
-    """
-    from pyrecode_tpu import native as _native
-
-    nat = _native.token_luts_radix(llen, lcode)
-    if nat is not None:
-        return nat
-    val, bits = token_luts(llen, lcode)
-    lut = np.zeros((48, 32), np.float32)
-    lut.reshape(2, 768)[0, :LUT_SIZE] = val.astype(np.float32)
-    lut.reshape(2, 768)[1, :LUT_SIZE] = bits.astype(np.float32)
-    return lut
-
-
-def splice_eob(body: np.ndarray, total_bits: int, eob_val: int, eob_len: int
-               ) -> Tuple[np.ndarray, int]:
-    """Append the end-of-block code at bit ``total_bits`` of ``body``."""
-    nfull = total_bits // 8
-    ph = total_bits % 8
-    head = int(body[nfull]) if ph else 0
-    word = head | (int(eob_val) << ph)
-    nb = (ph + eob_len + 7) // 8
-    tail = np.frombuffer(bytes((word >> (8 * i)) & 255 for i in range(nb)),
-                         dtype=np.uint8)
-    return np.concatenate([body[:nfull], tail]), total_bits + eob_len
-
-
-def deflate_batch_device(streams, lengths, raw_cb=None, interpret=None,
-                         compact=None, hint_state=None):
-    """Device entropy stage: deflate a batch of byte streams on the TPU.
-
-    ``streams`` — (B, NPAD) u8 array (device or host; NPAD a multiple of
-    4096); ``lengths`` — (B,) valid byte counts.  ``raw_cb(i)`` optionally
-    returns stream i's raw bytes for the (rare) stored-block fallback; when
-    absent, a fallback-needing stream is read back from the device.
-
-    Tokenization, histograms, adler32 and bitstream assembly run on device
-    (ops/pallas_deflate.py); the host contributes the O(alphabet) Huffman
-    table + header construction via the native library, making the output
-    byte-identical to ``native.deflate_sparse``.  Returns a list of B zlib
-    streams.
-
-    ``compact`` — shrink the assembly grid to real tokens instead of every
-    input slot.  Default (None) auto-enables it when the batch's token
-    density is low enough (sparse bitmap streams yes, literal-dense
-    pixel-value streams no).  Output bytes are identical either way.
-
-    ``hint_state`` — optional mutable dict carrying the observed token
-    density across calls (key ``"density"``).  With a hint, sparse batches
-    run the FUSED tokenize+compact kernel (one pass, the per-byte token
-    stream never leaves VMEM); without one, tokenize and compaction run as
-    two passes and the dict is seeded for the next call.  Capacity or bound
-    misses are detected by overflow flags and re-run exactly — the hint is
-    a speed heuristic, never a correctness input.
-    """
-    import jax.numpy as jnp
-
-    from .. import native
-    from ..ops import pallas_deflate as pdk
-
-    streams = jnp.asarray(streams, dtype=jnp.uint8)
-    B, npad = streams.shape
-    lengths = np.asarray(lengths, dtype=np.int32)
-    assert npad % pdk.CH_A == 0 and npad % pdk.CH_B == 0
-
-    hint = None if hint_state is None else hint_state.get("density")
-    max_len = max(int(lengths.max()), 1) if B else 1
-    tok = None
-
-    # ---- fused pass A + A.5 (pallas_deflate.tokenize_compact_pallas) ----
-    # ON by default since the 2026-08-18 precision fix: the historical v5e
-    # divergence was _compact_chunk's run-offset matmul rounding counts
-    # > 256 to bf16 at default MXU precision (see pallas_encode.py), not
-    # the butterfly left-pack; with precision=HIGHEST the fused kernel is
-    # byte-identical on hardware across densities (tools/verify_hw.py,
-    # tools/probe_fused.py) and 1.8x faster than two-pass tokenize+compact
-    # (0.62 vs 1.10 ms per 4096^2 bitmap stream, tools/bench_deflate.py).
-    # Opt out with PYRECODE_FUSED_TOKENIZE=0 or hint_state["fused"]=False.
-    import os as _os
-    fused_ok = _os.environ.get("PYRECODE_FUSED_TOKENIZE", "1") != "0"
-    if hint_state is not None and "fused" in hint_state:
-        fused_ok = bool(hint_state["fused"])
-    if fused_ok and compact is not False and B and hint is not None \
-            and hint < 0.5:
-        bucket = pdk.token_bucket_for(hint)
-        est = max(int(max_len * hint * 1.6), 1)
-        tok_bound = quantize_bound(est, pdk.CH_B)
-        for _ in range(len(pdk.TOKEN_BUCKETS) + 1):
-            if tok_bound >= npad:
-                break  # not worth compacting: fall through to dense path
-            dense, hist, adler, _, covf = pdk.tokenize_compact_pallas(
-                streams, jnp.asarray(lengths), bucket, tok_bound,
-                interpret=interpret)
-            hist_np = np.asarray(hist)
-            adler_np = np.asarray(adler)
-            tok_counts = hist_np[:, :286].sum(axis=1).astype(np.int64)
-            tok_max = int(tok_counts.max())
-            if not bool(np.asarray(covf).any()):
-                out_bound_c = min(2 * npad,
-                                  (tok_bound * pdk.MAX_TOKEN_BITS + 7) // 8)
-                tok, npad, out_bound = dense, tok_bound, out_bound_c + 256
-                break
-            # the histogram is exact even on overflow: retry with the exact
-            # per-batch bound and the next row capacity up (the top bucket
-            # equals the row width and cannot overflow)
-            tok_bound = quantize_bound(tok_max, pdk.CH_B)
-            bucket = min(bucket + 1, len(pdk.TOKEN_BUCKETS) - 1)
-
-    # ---- two-pass fallback: tokenize, then compact if worthwhile ----
-    if tok is None:
-        tok, hist, adler = pdk.tokenize_pallas(streams, jnp.asarray(lengths),
-                                               interpret=interpret)
-        hist_np = np.asarray(hist)     # (B, 512) — small readback
-        adler_np = np.asarray(adler)
-        tok_counts = hist_np[:, :286].sum(axis=1).astype(np.int64)
-        tok_max = int(tok_counts.max()) if B else 0
-        # quarter-octave quantization bounds the number of distinct kernel
-        # shapes while keeping assembly-grid slack under 25%
-        tok_bound = quantize_bound(tok_max, pdk.CH_B)
-        # Literal-dense streams (packed pixel intensities in dynamic mode):
-        # every token sits at a byte position < its stream's length, so
-        # slicing the inverted token stream to a length bound removes the
-        # capacity padding from the assembly grid for FREE — the compaction
-        # pass only pays for itself when tokens are sparse *within* the
-        # valid prefix (r5: pk dynamic-mode assemble 786K -> 256K slots,
-        # ~1 ms/4-frame batch at 4096^2 1%).  Output bytes are identical.
-        slice_cols = min(npad, quantize_bound(max_len, pdk.CH_B))
-        if compact is None:
-            compact = 2 * tok_bound <= slice_cols
-        if compact and tok_bound < npad:
-            density = tok_max / max_len
-            bucket = pdk.compact_bucket_for(density)
-            from ..ops.pallas_encode import CAPACITY_BUCKETS
-            while True:
-                dense, dcounts, covf = pdk.compact_tokens(
-                    tok, tok_bound, bucket=bucket, interpret=interpret)
-                if not bool(np.asarray(covf).any()) or \
-                        bucket >= len(CAPACITY_BUCKETS) - 1:
-                    break
-                bucket += 1
-            # body-size bound: <= 21 bits per dense token, and never more
-            # than the uncompacted worst case (emitted bits are identical)
-            out_bound_c = min(2 * npad,
-                              (tok_bound * pdk.MAX_TOKEN_BITS + 7) // 8)
-            tok, npad, out_bound = dense, tok_bound, out_bound_c + 256
-        else:
-            if slice_cols < npad:
-                tok, npad = tok[:, :slice_cols], slice_cols
-            out_bound = 2 * npad + 256
-
-    if hint_state is not None and B:
-        with np.errstate(divide="ignore", invalid="ignore"):
-            dens = tok_counts / np.maximum(lengths.astype(np.int64), 1)
-        hint_state["density"] = float(dens.max())
-
-    return _tables_assemble_finish(
-        tok, npad, out_bound, hist_np, adler_np, tok_counts, lengths,
-        raw_cb, streams, interpret,
-        compacted=npad != streams.shape[1])
-
-
-def _tables_assemble_finish(tok, npad, out_bound, hist_np, adler_np,
-                            tok_counts, lengths, raw_cb, streams, interpret,
-                            compacted):
-    """Shared tail of the device deflate paths: host Huffman tables +
-    header, early stored decision, device bit assembly, splice/finish.
-
-    ``tok`` is either the compacted dense token stream or the per-byte
-    inverted stream (``compacted`` selects the window estimate);
-    ``streams`` may be None (positions-driven path) if ``raw_cb`` covers
-    the stored-block fallback readbacks.
-    """
-    import jax.numpy as jnp
-
-    from .. import native
-    from ..ops import pallas_deflate as pdk
-
-    B = int(hist_np.shape[0])
-    lengths = np.asarray(lengths, dtype=np.int32)
-    luts = np.zeros((B, 48, 32), np.float32)
-    hdrs, hdr_bits, eobs = [], [], []
-    phases = np.zeros(B, np.int32)
-    partials = np.zeros(B, np.int32)
-    body_bits_exact = np.zeros(B, np.int64)
-    for i in range(B):
-        lfreq_body = hist_np[i, :286].astype(np.uint32)
-        combined = native.entropy_host_tables(lfreq_body, luts[i])
-        if combined is not None:
-            hb, hbits, eob_val, eob_len, body_bits = combined
-        else:  # no native lib: same construction in three steps
-            lfreq = lfreq_body.copy()
-            lfreq[256] += 1  # end of block
-            llen, lcode = native.dyn_tables(lfreq)
-            hb, hbits = native.dyn_header(llen)
-            luts[i] = luts_as_radix(llen, lcode)
-            eob_val = int(bit_reverse(lcode[256:257], llen[256:257])[0])
-            eob_len = int(llen[256])
-            # exact body bits: extra bits per length code are fixed, so the
-            # histogram determines the total (used to pick the scatter window)
-            f = lfreq_body.astype(np.int64)
-            sym_bits = llen[:286].astype(np.int64).copy()
-            sym_bits[257:286] += LEN_EXTRA[: 286 - 257].astype(np.int64) + 1
-            body_bits = int((f * sym_bits).sum())
-        hdrs.append(hb)
-        hdr_bits.append(hbits)
-        eobs.append((eob_val, eob_len))
-        phases[i] = hbits % 8
-        partials[i] = int(hb[-1]) if hbits % 8 else 0
-        body_bits_exact[i] = body_bits
-
-    # ---- early stored-block decision ----
-    # The dynamic-block size is EXACT from the histogram + tables (extra
-    # bits per length code are fixed), so the stored-vs-dynamic choice is
-    # known before assembly.  When every stream in the batch takes stored
-    # blocks (high-entropy streams, e.g. packed pixel intensities of
-    # near-uniform residuals), skip the assembly kernel entirely — the same
-    # rule zlib itself applies, producing byte-identical output to the
-    # late fallback below and to the native encoder.
-    if B:
-        def _final_len(i):
-            bits2 = int(phases[i]) + int(body_bits_exact[i]) + eobs[i][1]
-            return hdr_bits[i] // 8 + (bits2 + 7) // 8
-
-        def _stored_size(i):
-            n = int(lengths[i])
-            return 2 + n + 5 * (n // 65535 + 1)
-
-        if all(_final_len(i) > _stored_size(i) for i in range(B)):
-            results = []
-            for i in range(B):
-                n = int(lengths[i])
-                raw = raw_cb(i) if raw_cb is not None else \
-                    np.asarray(streams[i, :n]).tobytes()
-                results.append(stored_blocks(raw, n)
-                               + int(adler_np[i]).to_bytes(4, "big"))
-            return results
-
-    # ---- scatter-window preset: expected bits in a full CH_B-token step ----
-    slots_used = np.maximum(
-        tok_counts if npad != streams.shape[1] else lengths.astype(np.int64), 1)
-    step_est = int(np.max(
-        body_bits_exact * pdk.CH_B // slots_used[:B])) if B else 0
-    nw = pdk.window_rows_for(int(step_est * 1.3) + 8)
-
-    # The split (parallel scatter + serial concat) assembly variant is
-    # byte-identical on hw but measured NEUTRAL (1.69 vs 1.49-1.83 ms per
-    # 4-frame 4096^2 bitmap batch, run-to-run overlapping): the one-kernel
-    # form's serial chain is not its bottleneck at production token
-    # bounds — the 2.9 ms once attributed to it was ~50% token-bound
-    # slack (pad steps), which quantize_bound keeps under 25% here.
-    # PYRECODE_SPLIT_ASSEMBLE=1 opts into the split form.
-    import os as _os
-
-    asm = pdk.assemble_pallas_split \
-        if _os.environ.get("PYRECODE_SPLIT_ASSEMBLE", "0") == "1" \
-        else pdk.assemble_pallas
-    body, totbits, ovf = asm(
-        tok, jnp.asarray(luts),
-        jnp.asarray(phases), jnp.asarray(partials), out_bound,
-        nw=nw, interpret=interpret)
-    if nw < pdk.WIN_ROWS_MAX and bool(np.asarray(ovf).any()):
-        # a step's bits exceeded the narrow window — re-run at full width
-        body, totbits, ovf = asm(
-            tok, jnp.asarray(luts),
-            jnp.asarray(phases), jnp.asarray(partials), out_bound,
-            nw=pdk.WIN_ROWS_MAX, interpret=interpret)
-    totbits_np = np.asarray(totbits)
-    ovf_np = np.asarray(ovf)
-
-    results = []
-    for i in range(B):
-        n = int(lengths[i])
-        stored_size = 2 + n + 5 * (n // 65535 + 1)
-        tot = int(totbits_np[i])
-        nbytes = (tot + eobs[i][1] + 7) // 8 + 1
-        body_i = np.asarray(body[i, :nbytes])   # per-stream small readback
-        spliced, bits2 = splice_eob(body_i, tot, *eobs[i])
-        if bool(ovf_np[i]):
-            # cannot happen: the output bound (2n + 256 bytes) exceeds the
-            # worst case of 15 bits per input byte
-            raise RuntimeError(f"device deflate output overflow (stream {i})")
-        final_len = hdr_bits[i] // 8 + (bits2 + 7) // 8
-        raw = None
-        if final_len > stored_size:
-            # stored-block fallback (same rule as the native encoder): only
-            # here do we need the raw bytes back from the device
-            raw = raw_cb(i) if raw_cb is not None else \
-                np.asarray(streams[i, :n]).tobytes()
-        results.append(finish_stream(hdrs[i], hdr_bits[i], spliced, bits2,
-                                     int(adler_np[i]), n, raw=raw))
-    return results
 
 
 def deflate_dyn_np(data: bytes) -> bytes:

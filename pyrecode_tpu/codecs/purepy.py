@@ -21,7 +21,7 @@ environments:
   zstandard package is present).
 
 These are correctness/capability fallbacks, not performance paths: the
-default TPU pipeline uses scheme 0 with the device/native deflate.
+default pipeline uses scheme 0 with the native deflate.
 """
 
 from __future__ import annotations

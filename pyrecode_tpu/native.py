@@ -1,6 +1,6 @@
 """ctypes bindings for the native host kernels (native/recode_host.cpp).
 
-The TPU does the reduction/packing; these C++ loops serve the *host* side:
+The device does the reduction/packing; these C++ loops serve the *host* side:
 random-access decode in the reader, oracle-path packing, and merge tooling —
 the role the reference fills with its ``c_recode`` CPython extension
 (pyrecode.cpp, c_extensions/reader.h).  A ``Reader`` shim mirrors the
@@ -84,12 +84,6 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.dyn_tables.argtypes = [u32p, u8p, u16p2]
         lib.dyn_header.restype = ctypes.c_int64
         lib.dyn_header.argtypes = [u8p, u8p]
-        f32p = ctypes.POINTER(ctypes.c_float)
-        lib.token_luts_radix.restype = None
-        lib.token_luts_radix.argtypes = [u8p, u16p2, f32p]
-        i64p = ctypes.POINTER(ctypes.c_int64)
-        lib.entropy_host_tables.restype = None
-        lib.entropy_host_tables.argtypes = [u32p, u8p, f32p, i64p]
         lib.rans_compress.restype = ctypes.c_int64
         lib.rans_compress.argtypes = [u8p, ctypes.c_uint64, u8p, u32p,
                                       ctypes.c_uint32]
@@ -252,7 +246,7 @@ def deflate_sparse(data) -> bytes:
 
 
 def rans_compress(data, nways: int = 512) -> bytes:
-    """TPU-rANS (scheme 12) encode; byte-identical to
+    """rANS (scheme 12) encode; byte-identical to
     ``codecs.rans.compress`` (the numpy reference).  Falls back to the numpy
     path when the native library is unavailable."""
     lib = get_lib()
@@ -311,7 +305,7 @@ def rans_compress_gaps_native(bitmap, nways: int) -> Optional[bytes]:
 
 
 def rans_decompress(stream) -> bytes:
-    """TPU-rANS (scheme 12) decode (native; numpy fallback)."""
+    """rANS (scheme 12) decode (native; numpy fallback)."""
     lib = get_lib()
     buf = bytes(stream)
     if lib is None:
@@ -319,7 +313,7 @@ def rans_decompress(stream) -> bytes:
 
         return _rans.decompress(buf)
     if len(buf) < 8 or buf[0] != 0xA5:
-        raise ValueError("not a TPU-rANS stream")
+        raise ValueError("not a rANS stream")
     n = int.from_bytes(buf[4:8], "little")
     src = np.ascontiguousarray(np.frombuffer(buf, dtype=np.uint8))
     out = np.empty(max(n, 1), dtype=np.uint8)
@@ -331,13 +325,13 @@ def rans_decompress(stream) -> bytes:
         got = lib.rans_decompress(_u8ptr(src), ctypes.c_uint64(src.size),
                                   _u8ptr(out), ctypes.c_uint64(out.size))
     if got < 0:
-        raise ValueError("TPU-rANS stream corrupt")
+        raise ValueError("rANS stream corrupt")
     return out[:got].tobytes()
 
 
 def rans_reconstruct(syms: np.ndarray, xbits: bytes, n: int
                      ) -> Optional[bytes]:
-    """Symbols (device rANS decode output) + extra bits -> raw bytes.
+    """Decoded rANS symbols + extra bits -> raw bytes.
 
     Returns None when the native library is unavailable (callers fall back
     to the numpy path); raises on malformed input.  The adler check is the
@@ -354,7 +348,7 @@ def rans_reconstruct(syms: np.ndarray, xbits: bytes, n: int
         ctypes.c_uint64(s.size), _u8ptr(np.ascontiguousarray(xb)),
         ctypes.c_uint64(xb.size), _u8ptr(out), ctypes.c_uint64(int(n)))
     if got < 0:
-        raise ValueError("TPU-rANS symbol stream corrupt")
+        raise ValueError("rANS symbol stream corrupt")
     return out[: int(n)].tobytes()
 
 
@@ -392,59 +386,6 @@ def dyn_header(llen: np.ndarray) -> Tuple[np.ndarray, int]:
     out = np.zeros(512, dtype=np.uint8)
     bits = int(lib.dyn_header(_u8ptr(lens), _u8ptr(out)))
     return out[: (bits + 7) // 8], bits
-
-
-def token_luts_radix(llen: np.ndarray, lcode: np.ndarray
-                     ) -> Optional[np.ndarray]:
-    """Token (value, bit-count) LUT in the assembly kernel's radix layout.
-
-    Native counterpart of ``codecs.dyndeflate.luts_as_radix`` (its numpy
-    build costs ~100 us/stream of call overhead on the device-entropy hot
-    path).  Returns a (48, 32) f32 LUT — rows 0..23 full token values
-    (exact in f32, <= 21 bits), rows 24..47 bit counts, both laid out
-    [idx >> 5, idx & 31] — or None when the native library is unavailable
-    (caller falls back to numpy).
-    """
-    lib = get_lib()
-    if lib is None:
-        return None
-    lens = np.ascontiguousarray(llen, dtype=np.uint8)
-    codes = np.ascontiguousarray(lcode, dtype=np.uint16)
-    lut = np.zeros((48, 32), dtype=np.float32)
-    f32p = ctypes.POINTER(ctypes.c_float)
-    lib.token_luts_radix(_u8ptr(lens),
-                         codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
-                         lut.ctypes.data_as(f32p))
-    return lut
-
-
-def entropy_host_tables(lfreq_body: np.ndarray, lut_out: np.ndarray
-                        ) -> Optional[Tuple[np.ndarray, int, int, int, int]]:
-    """Whole per-stream host step of the device entropy path in one call.
-
-    ``lfreq_body`` — 286 literal/length frequencies (end-of-block NOT yet
-    counted; added inside).  Writes the radix token LUT into ``lut_out``
-    ((48, 32) f32, see :func:`token_luts_radix`) in place and returns
-    (header bytes, header_bits, eob_val, eob_len, body_bits); None when the
-    native library is unavailable.  Matches dyn_tables + dyn_header +
-    token_luts_radix done separately, with one ctypes round-trip instead of
-    three.
-    """
-    lib = get_lib()
-    if lib is None:
-        return None
-    freq = np.ascontiguousarray(lfreq_body, dtype=np.uint32)
-    assert freq.size == 286
-    hdr = np.zeros(512, dtype=np.uint8)
-    info = np.zeros(4, dtype=np.int64)
-    f32p = ctypes.POINTER(ctypes.c_float)
-    lib.entropy_host_tables(
-        freq.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)), _u8ptr(hdr),
-        lut_out.ctypes.data_as(f32p),
-        info.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
-    bits = int(info[0])
-    return (hdr[: (bits + 7) // 8], bits, int(info[1]), int(info[2]),
-            int(info[3]))
 
 
 class Reader:

@@ -1,6 +1,6 @@
 """Vectorized bit-packing kernels (XLA; batched over frames).
 
-TPU-native replacement for the reference's per-pixel numba loops
+Device replacement for the reference's per-pixel numba loops
 (``_pack_binary_frame`` recode_writer.py:622-634, ``_bit_pack``
 recode_writer.py:637-652) and the C pack/unpack loops
 (c_extensions/reader.h:74-140).  The wire format is identical:
@@ -72,8 +72,8 @@ def bitpack_values(values: jax.Array, bit_depth: int) -> jax.Array:
     if n % g_vals:
         raise ValueError(f"n={n} must be a multiple of the value group size {g_vals}")
     if n % packed_word_group_shape(bit_depth)[0] == 0:
-        # word-stack formulation: same bytes, ~1.7x faster on TPU (the
-        # minor-dim relayout runs on i32 words, 4x fewer elements)
+        # word-stack formulation: same bytes, combined on 32-bit words
+        # (4x fewer elements through the final relayout)
         return bitpack_values_words(values, bit_depth)
     v = values.reshape(*lead, n // g_vals, g_vals).astype(jnp.uint32)
 
@@ -93,22 +93,6 @@ def bitpack_values(values: jax.Array, bit_depth: int) -> jax.Array:
     return out.reshape(*lead, (n // g_vals) * g_bytes)
 
 
-def bitpack_values_device(values: jax.Array, bit_depth: int) -> jax.Array:
-    """:func:`bitpack_values` with the Pallas 12-bit fast path on TPU.
-
-    The XLA formulation pays a ~2.9 ms/4-frame-4096^2-batch relayout when
-    the values come out of a Pallas kernel (tools/probe_bitpack_chain.py);
-    the kernel in ops/pallas_bitpack.py packs at +0.02 ms.  Falls back to
-    the XLA path off-TPU, for other depths, or unaligned lengths."""
-    from . import pallas_bitpack
-
-    if (bit_depth == 12 and values.ndim == 2
-            and pallas_bitpack.supports(values.shape[-1], bit_depth)
-            and jax.devices()[0].platform == "tpu"):
-        return pallas_bitpack.bitpack12_pallas(values)
-    return bitpack_values(values.astype(jnp.uint32), bit_depth)
-
-
 def packed_word_group_shape(bit_depth: int):
     """(values per group, i32 words per group) for a ``bit_depth``-bit stream."""
     l = math.lcm(32, bit_depth)
@@ -119,8 +103,7 @@ def packed_word_group_shape(bit_depth: int):
 def bitpack_values_words(values: jax.Array, bit_depth: int) -> jax.Array:
     """Word-oriented :func:`bitpack_values`: identical output bytes, but the
     combine runs on 32-bit lanes (one minor-dim relayout of words instead of
-    bytes — 4x fewer elements through the TPU's expensive small-minor-dim
-    transpose).  ``n`` must be a multiple of ``lcm(32, bit_depth) /
+    bytes — 4x fewer elements through the small-minor-dim transpose).  ``n`` must be a multiple of ``lcm(32, bit_depth) /
     bit_depth``.
     """
     g_vals, g_words = packed_word_group_shape(bit_depth)

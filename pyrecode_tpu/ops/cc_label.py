@@ -1,6 +1,6 @@
-"""Connected-component labeling on TPU (8-connectivity).
+"""Connected-component labeling on the device (8-connectivity).
 
-TPU-native replacement for the reference's ``scipy.ndimage.label`` calls in
+Device replacement for the reference's ``scipy.ndimage.label`` calls in
 the L2/L4 encode paths (recode_writer.py:443 with the full 3x3 structure from
 recode_writer.py:166).  The algorithm is iterative label propagation —
 compiler-friendly: each step is a 3x3 min-pool (``lax.reduce_window``) over

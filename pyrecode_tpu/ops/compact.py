@@ -11,7 +11,7 @@ Two interchangeable strategies are provided; both are jittable and batched:
 * ``scatter``: positions via exclusive cumsum of the mask, then a single
   1-D scatter with out-of-bounds drop.  O(N), the default.
 * ``sort``: a stable key sort that moves foreground values to the front.
-  O(N log N) but sorts are heavily optimized on TPU; useful to compare.
+  O(N log N); kept as an independent formulation to compare against.
 
 Elements beyond the true count are zero, which downstream bit-packing relies
 on (the reference zero-initializes its pack buffers, reader.h:117-120).

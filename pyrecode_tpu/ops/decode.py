@@ -1,6 +1,6 @@
 """Batched decode kernels: packed streams -> dense frames.
 
-TPU-native replacement for the C decode hot loop ``_unpack_frame_sparse``
+Device replacement for the C decode hot loop ``_unpack_frame_sparse``
 (c_extensions/reader.h:10-68).  Where the reference walks the bitmap bit by
 bit, the batched kernel is gather-based and fully vectorized:
 
@@ -10,7 +10,7 @@ bit, the batched kernel is gather-based and fully vectorized:
     dense = vals[rank] * mask                       one gather
 
 Sparse COO extraction (row/col index lists) is a host-side epilogue on the
-mask (numpy flatnonzero); the dense form is what TPU consumers want.
+mask (numpy flatnonzero); the dense form is what device consumers want.
 """
 
 from __future__ import annotations

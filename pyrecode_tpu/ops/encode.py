@@ -1,6 +1,6 @@
 """Fused batched encode pipeline: threshold -> reduce -> pack, one jit.
 
-TPU-native replacement for the reference's per-frame Python encode loop
+Device replacement for the reference's per-frame Python encode loop
 ``ReCoDeWriter._reduce_compress`` (recode_writer.py:430-557).  A whole batch
 of frames is processed in one compiled program:
 
@@ -28,8 +28,7 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
-from .bitpack import (bitpack_values, bitpack_values_device,
-                      pack_bits, packed_group_shape)
+from .bitpack import bitpack_values, pack_bits, packed_group_shape
 from .cc_label import label_components
 from .compact import stream_compact
 from .segment import centroid_pixels_to_mask, l2_summary_stats, l4_centroid_pixels
@@ -146,67 +145,6 @@ def encode_frames(frames: jax.Array, threshold: jax.Array, reduction_level: int,
         )
 
     raise ValueError(f"Unknown reduction level: {reduction_level}")
-
-
-def encode_frames_auto(frames, threshold, reduction_level: int, bit_depth: int,
-                       max_values: int, l2_statistic: str = "max",
-                       l4_scheme: str = "weighted_average") -> EncodeResult:
-    """Encode with the fastest available backend.
-
-    L1/L3 on supported geometries use the fused Pallas kernel
-    (ops/pallas_encode.py), escalating through capacity buckets when a frame
-    overflows; everything else (L2/L4, exotic shapes, very dense data) uses
-    the XLA path.  Output is identical either way (both tested against the
-    oracle byte-for-byte).
-    """
-    from . import pallas_encode, pallas_label
-
-    B, H, W = frames.shape
-    use_pallas = (
-        reduction_level in (1, 3)
-        and pallas_encode.supports(H, W, bit_depth)
-        and max_values <= (4 << 20)  # VMEM-resident output bound
-    )
-    if use_pallas:
-        with_values = reduction_level == 1
-        out_size = max_values if with_values else 128
-        for bucket in range(pallas_encode.num_buckets()):
-            bitmap, comp, counts, ovf = pallas_encode.encode_l1_pallas(
-                frames, threshold, out_size, bucket=bucket, with_values=with_values)
-            if not bool(jnp.any(ovf)):
-                if with_values:
-                    packed = bitpack_values_device(comp, bit_depth)
-                    packed_len = (counts * bit_depth + 7) // 8
-                else:
-                    packed = packed_len = None
-                return EncodeResult(bitmap=bitmap, packed=packed, counts=counts,
-                                    packed_len=packed_len, overflow=ovf)
-        # all buckets overflowed (extremely dense data): fall through to XLA
-
-    if (reduction_level in (2, 4)
-            and pallas_label.supports(H, W, bit_depth)
-            and max_values <= (4 << 20)):
-        for halo_bucket in range(len(pallas_label.HALO_BUCKETS)):
-            for cap_bucket in range(pallas_encode.num_buckets()):
-                bitmap, stats, counts, ovf = pallas_label.encode_l2l4_pallas(
-                    frames, threshold, reduction_level, out_size=max_values,
-                    bit_depth=bit_depth, statistic=l2_statistic,
-                    scheme=l4_scheme, halo_bucket=halo_bucket,
-                    cap_bucket=cap_bucket)
-                if not bool(jnp.any(ovf)):
-                    if reduction_level == 2:
-                        packed = bitpack_values_device(stats, bit_depth)
-                        packed_len = (counts * bit_depth + 7) // 8
-                    else:
-                        packed = packed_len = None
-                    return EncodeResult(bitmap=bitmap, packed=packed,
-                                        counts=counts, packed_len=packed_len,
-                                        overflow=ovf)
-        # puddles too large/dense for the chunk-local kernel: XLA fallback
-
-    return encode_frames(frames, threshold, reduction_level=reduction_level,
-                         bit_depth=bit_depth, max_values=max_values,
-                         l2_statistic=l2_statistic, l4_scheme=l4_scheme)
 
 
 @partial(jax.jit, static_argnames=())

@@ -1,6 +1,6 @@
 """Per-puddle reductions: L2 summary statistics and L4 centroids.
 
-TPU-native replacement for the reference's numba per-pixel dict loops
+Device replacement for the reference's numba per-pixel dict loops
 (``get_summary_stats_nb`` converters.py:262-297, ``get_centroids_2D_nb``
 converters.py:157-259) using segment reductions over the compact component
 ids produced by :mod:`cc_label`.  Output slot ``k`` (0-based) corresponds to
@@ -116,7 +116,7 @@ def l4_centroids(labels: jax.Array, frames: jax.Array, max_puddles: int,
 def _round_div_half_even(num: jax.Array, den: jax.Array) -> jax.Array:
     """Exact round-half-to-even of ``num / den`` for uint32 inputs.
 
-    Integer arithmetic is order-independent, so TPU and CPU produce identical
+    Integer arithmetic is order-independent, so device and CPU produce identical
     pixels — float division would round differently near .5 across platforms.
     Exact while per-puddle sums stay below 2**32 (electron puddles are tiny;
     a puddle would need ~256 saturated pixels at 4096^2 to wrap).

@@ -1,7 +1,7 @@
 """CPU oracle: a small, correct, vectorized-numpy ReCoDe codec.
 
-This module defines the *semantics* the TPU kernels are tested against, and
-doubles as the host fallback encode/decode path.  It reproduces the reference
+This module defines the *semantics* the device kernels are tested against, and
+is the host encode/decode path (``use_device=False``).  It reproduces the reference
 wire format exactly where the reference is exercised (L1/L3, modes 0/1) and
 implements the documented spec for L2/L4 where the reference code is defective
 (see SURVEY.md §5.1: the reference's in-writer L4 path crashes and its L2
@@ -187,7 +187,7 @@ def l4_centroid_pixels(labels: np.ndarray, frame: np.ndarray, num_features: int,
     """Rounded centroid pixel (row, col) per puddle via exact integer math.
 
     Mirrors ops.segment.l4_centroid_pixels: integer sums + round-half-even
-    division, so the encoded L4 bitmap is identical across CPU oracle and TPU
+    division, so the encoded L4 bitmap is identical across CPU oracle and device
     kernels (float division would differ in the last ulp near .5).
     """
     if num_features == 0:

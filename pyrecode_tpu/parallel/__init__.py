@@ -1,9 +1,9 @@
-"""Multi-chip parallelism: device meshes and sharded encode.
+"""Multi-device parallelism: device meshes and sharded encode.
 
 The reference scales by forking N host processes that each encode a
 contiguous frame slice and write their own part file, coordinated over ZMQ
-(recode_server.py:350-363; SURVEY.md §2.3).  The TPU-native design moves that
-data parallelism onto the device mesh:
+(recode_server.py:350-363; SURVEY.md §2.3).  Here that data parallelism
+moves onto the device mesh:
 
 * frames are sharded over the ``data`` mesh axis (the analogue of the
   reference's ``num_threads`` processes);

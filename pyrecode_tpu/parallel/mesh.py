@@ -5,11 +5,11 @@ Mesh axes:
 * ``data`` — frames, the primary scaling dimension (the reference's
   multi-process data parallelism, recode_writer.py:320-322).
 * ``space`` — frame rows, for frames too large (4096^2) to want a single
-  chip's HBM round-trip per frame; 1 by default.
+  device's memory round-trip per frame; 1 by default.
 
-On a multi-host pod slice the ``data`` axis should span hosts (each host
-feeds its local frames) and ``space`` should stay inside a host so its
-collectives ride ICI, not DCN.
+On several hosts the ``data`` axis should span hosts (each host feeds its
+local frames) and ``space`` should stay inside a host so its collectives
+ride the cards' direct links (NVLink), not the network.
 """
 
 from __future__ import annotations

@@ -1,24 +1,24 @@
-"""Multi-chip / multi-host encode: per-device Pallas kernels + ordered gather.
+"""Multi-device / multi-host encode: per-device encode + ordered gather.
 
 Two pieces (SURVEY.md §2.3 "ordered gather / all-to-one"):
 
-* :func:`make_pallas_encode_step` — the fused Pallas L1 kernel wrapped in
-  ``jax.shard_map`` over the mesh's ``data`` axis: every device runs the
-  kernel on its local frame shard (GSPMD cannot auto-partition a
-  ``pallas_call``, but the encode is embarrassingly parallel over frames, so
-  shard_map is the natural mapping).  The threshold is broadcast once.
+* :func:`make_encode_step` — the fused L1 encode (:func:`ops.encode_frames`)
+  wrapped in ``jax.shard_map`` over the mesh's ``data`` axis: every device
+  encodes its local frame shard (the encode is embarrassingly parallel over
+  frames, so no collective runs inside the step).  The threshold is
+  broadcast once.
 * :func:`gather_ordered_blocks` — collect the per-frame variable-length
   streams in acquisition order for container assembly.  Frames are sharded
   contiguously over ``data`` (shard d owns frames [d*B/D, (d+1)*B/D)) —
   exactly the reference's per-node slicing (recode_writer.py:320-322) — so
   gathering shards in axis order preserves acquisition order and the
-  assembled container is identical to single-chip output.
+  assembled container is identical to single-device output.
 
-On a multi-host pod slice, ``jax.experimental.multihost_utils
-.process_allgather`` brings every shard to every host and process 0 writes
-the container; on a single host the addressable shards are read directly.
-Either way only the *compressible* streams move (bitmap + packed values, not
-raw frames), so the gather rides the reduction ratio.
+On several hosts, ``jax.experimental.multihost_utils.process_allgather``
+brings every shard to every host and process 0 writes the container; on a
+single host the addressable shards are read directly.  Either way only the
+*compressible* streams move (bitmap + packed values, not raw frames), so the
+gather rides the reduction ratio.
 """
 
 from __future__ import annotations
@@ -27,41 +27,30 @@ from __future__ import annotations
 from typing import Optional
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
-def make_pallas_encode_step(mesh: Mesh, out_size: int, bucket: int = 0,
-                            bit_depth: int = 12, with_values: bool = True):
-    """Build a shard_map'd fused encode step over the 'data' mesh axis.
+def make_encode_step(mesh: Mesh, max_values: int, bit_depth: int = 12):
+    """Build a shard_map'd L1 encode step over the 'data' mesh axis.
 
     Returns ``step(frames, threshold) -> (bitmap, packed, counts, overflow)``
     with outputs sharded over 'data'.  ``frames.shape[0]`` must divide evenly
-    over the data axis.
+    over the data axis; ``max_values`` bounds the foreground pixels of any
+    one frame (``overflow`` flags frames above it).
     """
-    from ..ops import bitpack
-    from ..ops import pallas_encode
+    from ..ops.encode import encode_frames
 
     def _local(frames, threshold):
-        bitmap, comp, counts, ovf = pallas_encode.encode_l1_pallas(
-            frames, threshold, out_size=out_size, bucket=bucket,
-            with_values=with_values,
-            interpret=jax.devices()[0].platform != "tpu")
-        if with_values:
-            packed = bitpack.bitpack_values_device(comp, bit_depth)
-        else:
-            packed = jnp.zeros((frames.shape[0], 1), jnp.uint8)
-        return bitmap, packed, counts, ovf
+        res = encode_frames(frames, threshold, reduction_level=1,
+                            bit_depth=bit_depth, max_values=max_values)
+        return res.bitmap, res.packed, res.counts, res.overflow
 
     shard = P("data")
-    rep = P()
     mapped = jax.shard_map(
         _local, mesh=mesh,
-        in_specs=(P("data", None, None), rep),
+        in_specs=(P("data", None, None), P()),
         out_specs=(shard, shard, shard, shard),
-        # pallas_call's out_shape carries no varying-mesh-axis info
-        check_vma=False,
     )
     return jax.jit(mapped)
 
@@ -70,7 +59,7 @@ def gather_ordered_blocks(bitmap, packed, counts, bit_depth: int,
                           process_index: Optional[int] = None):
     """Collect per-frame (bitmap_bytes, packed_bytes) in frame order.
 
-    Works on sharded arrays from :func:`make_pallas_encode_step`.  On a
+    Works on sharded arrays from :func:`make_encode_step`.  On a
     multi-process runtime the shards are allgathered and only the writer
     process (default 0) returns the blocks; other processes return None.
     """
@@ -99,87 +88,3 @@ def gather_ordered_blocks(bitmap, packed, counts, bit_depth: int,
 def replicate_threshold(threshold, mesh: Mesh):
     """Place the dark/calibration threshold replicated on every device."""
     return jax.device_put(threshold, NamedSharding(mesh, P()))
-
-
-def make_entropy_steps(mesh: Mesh, out_bound: int):
-    """shard_map'd device-entropy kernels over the 'data' mesh axis.
-
-    Returns ``(tokenize, assemble)``: each device runs the deflate pass-A
-    tokenizer and pass-B bitstream assembly (ops/pallas_deflate.py) on its
-    own shard of streams; the O(alphabet) Huffman-table construction between
-    the two passes is per-stream host work (codecs/dyndeflate pipeline).
-    Mirrors the reference's per-process entropy stage
-    (recode_writer.py:497-550) with frames data-parallel over chips.
-
-    ``tokenize(streams (B, NPAD) u8, lengths (B,) i32)`` ->
-    (tok (B, NPAD) u16, hist (B, 512) i32, adler (B,) u32), all sharded.
-    ``assemble(tok, luts (B, 48, 32) f32, phases (B,), partials (B,))`` ->
-    (body (B, out_bound') u8, total_bits (B,), overflow (B,)).
-    """
-    from ..ops import pallas_deflate as pdk
-
-    interp = jax.devices()[0].platform != "tpu"
-
-    def _tok(streams, lengths):
-        return pdk.tokenize_pallas(streams, lengths, interpret=interp)
-
-    tokenize = jax.jit(jax.shard_map(
-        _tok, mesh=mesh,
-        in_specs=(P("data", None), P("data")),
-        out_specs=(P("data", None), P("data", None), P("data")),
-        check_vma=False,
-    ))
-
-    def _asm(tok, luts, phases, partials):
-        return pdk.assemble_pallas(tok, luts, phases, partials, out_bound,
-                                   interpret=interp)
-
-    assemble = jax.jit(jax.shard_map(
-        _asm, mesh=mesh,
-        in_specs=(P("data", None), P("data", None, None), P("data"),
-                  P("data")),
-        out_specs=(P("data", None), P("data"), P("data")),
-        check_vma=False,
-    ))
-    return tokenize, assemble
-
-
-def make_rans_steps(mesh: Mesh, out_bound: int, npad_tok: int):
-    """shard_map'd scheme-12 rANS kernels over the 'data' mesh axis.
-
-    Returns ``(encode, decode)``: each device runs the interleaved-rANS
-    coder (ops/pallas_rans.py) on its own shard of dense token streams —
-    the codec whose DECODE also runs on device.
-
-    ``encode(dense (B, NP) u16/i32, eluts (B, 96, 32) f32, m (B,) i32)`` ->
-    (body (B, out_bound') i32-bytes, states (B, W_LANES), counts (B,)).
-    ``decode(body_rev (B, BW) u8, states (B, W_LANES) i32, m (B,) i32,
-    tabs (B, 96, 128) f32)`` -> syms (B, npad_tok) i32.
-    """
-    from ..ops import pallas_rans as prk
-
-    interp = jax.devices()[0].platform != "tpu"
-
-    def _enc(dense, eluts, m):
-        return prk.rans_encode_pallas(dense, eluts, m, out_bound,
-                                      interpret=interp)
-
-    encode = jax.jit(jax.shard_map(
-        _enc, mesh=mesh,
-        in_specs=(P("data", None), P("data", None, None), P("data")),
-        out_specs=(P("data", None), P("data", None), P("data")),
-        check_vma=False,
-    ))
-
-    def _dec(body_rev, states, m, tabs):
-        return prk.rans_decode_pallas(body_rev, states, m, npad_tok, tabs,
-                                      interpret=interp)
-
-    decode = jax.jit(jax.shard_map(
-        _dec, mesh=mesh,
-        in_specs=(P("data", None), P("data", None), P("data"),
-                  P("data", None, None)),
-        out_specs=P("data", None),
-        check_vma=False,
-    ))
-    return encode, decode

@@ -15,7 +15,7 @@ Everything inside is batch-parallel per frame, so with pure data sharding
 XLA inserts no cross-device collectives; with ``space`` row-sharding the
 per-frame flat cumsum in the compaction stage lowers to a segmented scan +
 cross-shard prefix exchange which GSPMD derives automatically — lay out the
-mesh so 'space' stays on ICI.
+mesh so 'space' stays inside one host.
 """
 
 from __future__ import annotations

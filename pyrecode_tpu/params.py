@@ -5,7 +5,8 @@ Capability parity with the reference ``pyrecode/params.py``:
 * ``InitParams`` (params.py:7-190) — runtime/session options: mode
   batch/stream, paths, verbosity, validation frame gap, streaming chunking.
   The reference's ``use_c`` flag (select the C hot path) maps here to
-  ``use_tpu`` (select the TPU batched encode path vs. the numpy oracle path).
+  ``use_device`` (select the batched device encode path vs. the numpy oracle
+  path; ``use_tpu`` is accepted as an older alias).
 * ``InputParams`` (params.py:193-579) — the 25 codec parameters loaded from a
   flat ``key = int`` text file with a strict known-key check (params.py:215-225),
   the validation matrix (params.py:227-341) and round-trip ``serialize()``
@@ -40,8 +41,8 @@ class InitParams:
 
     def __init__(self, mode, output_directory, image_filename="", directory_path="",
                  calibration_filename="", params_filename="", validation_frame_gap=-1,
-                 log_filename="recode.log", run_name="run", verbosity=0, use_tpu=True,
-                 max_count=-1, chunk_time_in_sec=0, use_c=None):
+                 log_filename="recode.log", run_name="run", verbosity=0, use_device=True,
+                 max_count=-1, chunk_time_in_sec=0, use_c=None, use_tpu=None):
         """
         Parameters
         ----------
@@ -64,10 +65,11 @@ class InitParams:
             logging identity.
         verbosity : int
             0, 1 or 2 (clamped).
-        use_tpu : bool
-            True = batched TPU encode path; False = numpy oracle path.
-            (``use_c`` is accepted as a deprecated alias for API compatibility
-            with the reference, params.py:37-38.)
+        use_device : bool
+            True = batched device encode path; False = numpy oracle path.
+            (``use_tpu`` is an older alias that overrides it when given;
+            ``use_c`` is accepted and ignored for API compatibility with the
+            reference, params.py:37-38.)
         max_count : int
             maximum number of data chunks to process when mode='stream'.
         chunk_time_in_sec : int
@@ -83,9 +85,9 @@ class InitParams:
         self._log_filename = log_filename
         self._run_name = run_name
         # ``use_c`` is accepted for reference API compatibility but has no
-        # effect: the native hot path here is the TPU one, chosen via use_tpu.
+        # effect: the hot path here is the device one, chosen via use_device.
         del use_c
-        self._use_tpu = bool(use_tpu)
+        self._use_device = bool(use_device if use_tpu is None else use_tpu)
         self._directory_path = directory_path
         self._max_count = max_count
         self._chunk_time_in_sec = chunk_time_in_sec
@@ -119,9 +121,10 @@ class InitParams:
     output_directory = property(lambda self: self._output_directory)
     log_filename = property(lambda self: self._log_filename)
     run_name = property(lambda self: self._run_name)
-    use_tpu = property(lambda self: self._use_tpu)
-    # deprecated alias kept for reference API compatibility
-    use_c = property(lambda self: not self._use_tpu)
+    use_device = property(lambda self: self._use_device)
+    # older aliases kept for API compatibility
+    use_tpu = use_device
+    use_c = property(lambda self: not self._use_device)
     directory_path = property(lambda self: self._directory_path)
     max_count = property(lambda self: self._max_count)
     chunk_time_in_sec = property(lambda self: self._chunk_time_in_sec)

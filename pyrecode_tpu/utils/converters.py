@@ -14,7 +14,7 @@ Capability parity with the reference ``utils/converters.py``:
 * ``read_dark_ref`` (converters.py:312-317).
 
 The per-frame numba dict loops become oracle/ops kernels;
-``l1_to_l4_batch`` additionally runs whole frame batches through the TPU
+``l1_to_l4_batch`` additionally runs whole frame batches through the device
 CC-labeling + centroid kernels.
 """
 
@@ -134,7 +134,7 @@ def l1_to_l4_converter(l1_frames, frame_shape, n_frames=-1, area_threshold=0,
 
 def l1_to_l4_batch(dense_frames: np.ndarray, method: str = "weighted_average",
                    max_puddles: Optional[int] = None) -> np.ndarray:
-    """TPU-batched L1 -> L4: centroid maps for a whole (B, H, W) batch.
+    """Device-batched L1 -> L4: centroid maps for a whole (B, H, W) batch.
 
     The device path of :func:`l1_to_l4_converter` — one fused program for
     CC-labeling, centroiding and rasterization (ops/cc_label.py,

@@ -4,7 +4,7 @@ Capability parity with the reference ``utils/converters_mt.py``: ``L1_to_L4``
 converts a range of decoded frames; ``L1_to_L4_mt`` fans the frame range out
 (``np.array_split``) and collects results in order (converters_mt.py:45-79).
 
-TPU-first re-architecture: the reference forks one OS process per split and
+Re-architecture around the device: the reference forks one OS process per split and
 runs numba pixel loops; here each split is a *device batch* through the fused
 CC-label + centroid kernels, and the splits run on a thread pool that
 overlaps the host-side densify/sparsify with device compute.

@@ -1,21 +1,21 @@
-"""ReCoDeWriter: the encoder engine (TPU-batched).
+"""ReCoDeWriter: the encoder engine (device-batched).
 
 Capability parity with the reference ``ReCoDeWriter`` (recode_writer.py:24-652)
 — same constructor surface, ``start()`` / ``run()`` / ``close()`` lifecycle,
 part-file naming ``<base>.rc<L>_part<NNN>``, per-node frame slicing, validation
 frames with dose-rate telemetry, and per-stage run metrics — but re-architected
-TPU-first:
+around batched device kernels:
 
 * the reference encodes frame by frame in Python (recode_writer.py:383-428);
   here whole batches go through one fused jitted kernel
   (:func:`pyrecode_tpu.ops.encode_frames`), with the variable-length intensity
   stream handled by max-bound buffers whose bound is picked per batch from a
   cheap foreground-count pre-pass (power-of-two buckets keep the jit cache
-  small);
+  small, and the bound always holds the batch, so no frame overflows);
 * bit-packing happens on device; the host does entropy coding (zlib & co
   release the GIL; multiple writer threads overlap) and container byte
   assembly;
-* ``use_tpu=False`` selects the vectorized numpy oracle path instead — the
+* ``use_device=False`` selects the vectorized numpy oracle path instead — the
   two paths produce byte-identical part files.
 
 The produced intermediate part files are byte-compatible with the reference
@@ -47,7 +47,10 @@ _MIN_BUCKET = 1 << 10
 
 
 def _bucket_for(count: int, limit: int) -> int:
-    """Smallest power-of-two >= count (and >= _MIN_BUCKET), capped at limit."""
+    """Smallest power-of-two >= count (and >= _MIN_BUCKET), capped at limit.
+
+    ``count <= limit`` always (a frame has ``limit`` pixels), so the bucket
+    holds every frame of the batch."""
     b = _MIN_BUCKET
     while b < count:
         b <<= 1
@@ -59,9 +62,9 @@ class ReCoDeWriter:
 
     def __init__(self, image_filename, dark_data=None, dark_filename="", output_directory="",
                  input_params=None, params_filename="", mode="batch", validation_frame_gap=-1,
-                 log_filename="recode.log", run_name="run", verbosity=0, use_tpu=True,
+                 log_filename="recode.log", run_name="run", verbosity=0, use_device=True,
                  max_count=-1, chunk_time_in_sec=0, node_id=0, buffer_size_in_frames=32,
-                 use_c=None, fast_deflate=True, device_entropy=None):
+                 use_c=None, fast_deflate=True, use_tpu=None):
         """Parameters mirror the reference writer (recode_writer.py:26-66).
 
         ``node_id`` selects this writer's contiguous frame slice
@@ -73,27 +76,16 @@ class ReCoDeWriter:
         still a valid zlib stream that every inflate (incl. the reference)
         decodes, ~18% smaller than zlib level 1 on sparse detector streams
         and faster to produce.  Set False for byte-identical-to-zlib output.
-        ``device_entropy`` runs the entropy stage ON THE TPU: scheme 0 uses
-        the dynamic-Huffman deflate kernels (ops/pallas_deflate.py), scheme
-        12 the interleaved-rANS kernels (ops/pallas_rans.py); the reduced
-        streams never come back to the host raw — only the compressed bytes
-        do.  Scheme-0 output is byte-identical to the native host encoder
-        (the dryrun asserts merged dev==host); scheme-12 device streams are
-        self-describing and decodable by every scheme-12 decoder but NOT
-        byte-identical to the host coder — the kernels use fixed lane counts
-        (1024/8192) where the host picks adaptive lanes, and the device path
-        only falls back to stored blocks (no byte-mode size comparison).
-        Default (None) enables it automatically on a real TPU for
-        scheme-0/12 mode-1 runs at every reduction level — both the fused
-        L1/L3 kernel path and the XLA L2/L4 path feed device arrays to the
-        entropy kernels; True forces it (tests use interpret mode); False
-        disables.
+        ``use_device`` (default True) encodes on the accelerator; False
+        selects the numpy oracle path (byte-identical output).  ``use_tpu``
+        is accepted as an older alias of ``use_device``.
         """
         self._init_params = InitParams(
             mode, output_directory, image_filename=image_filename,
             calibration_filename=dark_filename, params_filename=params_filename,
             validation_frame_gap=validation_frame_gap, log_filename=log_filename,
-            run_name=run_name, verbosity=verbosity, use_tpu=use_tpu, use_c=use_c,
+            run_name=run_name, verbosity=verbosity, use_device=use_device, use_c=use_c,
+            use_tpu=use_tpu,
             max_count=max_count, chunk_time_in_sec=chunk_time_in_sec)
 
         if input_params is None:
@@ -145,7 +137,6 @@ class ReCoDeWriter:
         self._l2_statistic = _L2_STATISTIC_NAMES[int(self._header["L2_statistics"])]
         self._l4_scheme = _L4_SCHEME_NAMES[int(self._header["L4_centroiding"])]
         self._batch_size = max(1, int(buffer_size_in_frames))
-        self._cap_bucket = 0  # pallas capacity bucket, escalated on overflow
 
         scheme = int(self._header["compression_scheme"])
         self._scheme = scheme
@@ -159,24 +150,6 @@ class ReCoDeWriter:
                                            native.deflate_sparse,
                                            self._codec.decompress)
 
-        # TPU entropy stage: device dynamic-Huffman deflate for the fused
-        # L1/L3 path (scheme 0, mode 1).  None = auto-enable on real TPU.
-        self._device_entropy = device_entropy
-        if self._device_entropy is None:
-            try:
-                import jax
-                from . import native as _native
-
-                self._device_entropy = (
-                    use_tpu and scheme in (0, 12)
-                    and self._rc_operation_mode == 1
-                    and _native.available()
-                    and jax.devices()[0].platform == "tpu")
-            except Exception:
-                self._device_entropy = False
-        # observed token densities per stream kind: lets deflate_batch_device
-        # run the fused tokenize+compact kernel from the second batch on
-        self._entropy_hints = {"bm": {}, "px": {}}
         import threading
         from concurrent.futures import ThreadPoolExecutor
 
@@ -420,7 +393,7 @@ class ReCoDeWriter:
             run_metrics["frame_thresholding_and_counting_time"] += datetime.now() - stt
             if pending is not None:
                 self._finish_batch(*pending, run_metrics)
-            pending = (batch, first_abs_index, dispatched, n_in_batch)
+            pending = (first_abs_index, dispatched, n_in_batch)
         if pending is not None:
             self._finish_batch(*pending, run_metrics)
 
@@ -479,245 +452,48 @@ class ReCoDeWriter:
         """Launch the device encode without waiting for it (JAX dispatch is
         async); returns whatever _materialize_streams understands.
 
-        For L1/L3 on supported geometries the fused Pallas kernel is
-        dispatched directly at the writer's current capacity bucket with NO
-        host sync — the overflow flag is only inspected at materialize time
-        (the rare overflow re-encodes that batch synchronously and raises the
-        persistent bucket).  This is what lets the device encode batch k+1
-        overlap batch k's host compression."""
-        if not self._init_params.use_tpu:
+        The foreground-count prepass sizes ``max_values``, so the encode
+        cannot overflow.  Dispatch returns before the device finishes, which
+        lets the device encode batch k+1 overlap batch k's host
+        compression."""
+        if not self._init_params.use_device:
             return ("host", self._encode_batch_oracle(batch))
         from . import ops
-        from .ops import pallas_encode
 
-        ny, nx = int(self._header["ny"]), int(self._header["nx"])
-        n_pixels = ny * nx
+        n_pixels = int(self._header["ny"]) * int(self._header["nx"])
         counts = np.asarray(ops.count_foreground(batch, self._threshold))
-        max_count = int(counts.max()) if counts.size else 0
-        bucket = _bucket_for(max_count, n_pixels)
-
-        if (self._reduction_level in (1, 3)
-                and pallas_encode.supports(ny, nx, self._bit_depth)
-                and bucket <= (4 << 20)):
-            import jax
-            import jax.numpy as jnp
-
-            with_values = self._reduction_level == 1
-            B = batch.shape[0]
-            # tiny frames: encode the whole batch as one stacked superframe
-            # (one grid pass amortizes per-frame kernel overhead).  Measured
-            # crossover on v5e: stacked wins at 128^2 (9.7 vs 3.7 GB/s) but
-            # loses from 256^2 up (11.3 vs 16.5) — since the hierarchical
-            # concat cut the per-chunk cost, the plain batched grid is
-            # faster wherever a frame spans several grid steps.  Per-frame
-            # value slices start at aligned offsets from the prepass counts.
-            stack = (B > 1 and ny <= 128
-                     and pallas_encode.supports(B * ny, nx, self._bit_depth)
-                     and B * bucket <= (4 << 20))
-            if stack:
-                bitmap, comp, _, ovf = pallas_encode.encode_l1_stacked(
-                    batch, self._threshold, per_frame_bound=bucket,
-                    bucket=self._cap_bucket, with_values=with_values)
-                packed = None
-                if with_values:
-                    starts = pallas_encode.stacked_offsets(counts)
-                    bound = -(-bucket // pallas_encode.STACK_ALIGN) \
-                        * pallas_encode.STACK_ALIGN
-                    rows = jnp.stack([
-                        jax.lax.dynamic_slice(comp[0], (int(starts[i]),),
-                                              (bound,))
-                        for i in range(B)])
-                    packed = ops.bitpack_values_device(rows,
-                                                self._bit_depth)
-                return ("pallas", (bitmap, packed, jnp.asarray(counts), ovf,
-                                   bucket, None))
-            # scheme-12 device entropy wants the set-bit positions: the
-            # fused kernel emits them rank-aligned with the values for a
-            # fraction of the standalone bitmap->positions kernel's cost
-            want_pos = (with_values and self._device_entropy
-                        and self._scheme == 12)
-            out = pallas_encode.encode_l1_pallas(
-                batch, self._threshold, out_size=bucket if with_values else 128,
-                bucket=self._cap_bucket, with_values=with_values,
-                with_positions=want_pos,
-                pos_vbits=self._bit_depth if want_pos else 0)
-            if want_pos:
-                bitmap, comp, counts_dev, ovf, pos = out
-            else:
-                bitmap, comp, counts_dev, ovf = out
-                pos = None
-            packed = None
-            if with_values:
-                packed = ops.bitpack_values_device(comp, self._bit_depth)
-            return ("pallas", (bitmap, packed, counts_dev, ovf, bucket, pos))
-
+        bucket = _bucket_for(int(counts.max()) if counts.size else 0, n_pixels)
         res = ops.encode_frames(
             batch, self._threshold, reduction_level=self._reduction_level,
             bit_depth=self._bit_depth, max_values=bucket,
             l2_statistic=self._l2_statistic, l4_scheme=self._l4_scheme)
         return ("device", res)
 
-    def _materialize_streams(self, batch: np.ndarray, dispatched):
-        """Resolve a dispatched encode to per-frame streams.
-
-        Returns ("raw", [(bitmap_bytes, pixvals_bytes|None), ...]) for host
-        entropy coding, or ("compressed", [(cbm, cpx|None, raw_pixlen), ...])
-        when the device entropy stage already produced the zlib streams.
-        """
+    def _materialize_streams(self, dispatched):
+        """Resolve a dispatched encode to per-frame (bitmap_bytes,
+        pixvals_bytes|None) streams for host entropy coding."""
         kind, res = dispatched
         if kind == "host":
-            return ("raw", res)
-        if kind == "pallas":
-            from .ops import pallas_encode
-
-            bitmap, packed, counts_dev, ovf, out_size, pos = res
-            while bool(np.asarray(ovf).any()):
-                # rare: clustered data exceeded this bucket; escalate
-                # persistently and redo the batch synchronously
-                if self._cap_bucket + 1 >= pallas_encode.num_buckets():
-                    return ("raw", self._encode_batch_oracle(batch))
-                self._cap_bucket += 1
-                kind, res = self._dispatch_encode(batch)
-                if kind != "pallas":
-                    return self._materialize_streams(batch, (kind, res))
-                bitmap, packed, counts_dev, ovf, out_size, pos = res
-            counts_np = np.asarray(counts_dev)
-            if self._device_entropy:
-                plens = (counts_np.astype(np.int64) * self._bit_depth + 7) // 8
-                recs, t_bm, t_px = self._deflate_on_device(
-                    bitmap, packed, plens, positions=pos,
-                    pos_counts=counts_dev)
-                return ("compressed", (recs, t_bm, t_px))
-            bitmaps = np.asarray(bitmap).reshape(batch.shape[0], -1)
-            out = []
-            if packed is not None:
-                packed_np = np.asarray(packed)
-                for i in range(batch.shape[0]):
-                    plen = (int(counts_np[i]) * self._bit_depth + 7) // 8
-                    out.append((bitmaps[i].tobytes(), packed_np[i][:plen].tobytes()))
-            else:
-                for i in range(batch.shape[0]):
-                    out.append((bitmaps[i].tobytes(), None))
-            return ("raw", out)
-        if self._device_entropy:
-            # L2/L4 (and exotic-geometry L1/L3) batches from the XLA path:
-            # the reduced streams are device arrays here too, so the entropy
-            # stage runs on device just like the fused-kernel path
-            plens = np.asarray(res.packed_len).astype(np.int64) \
-                if res.packed is not None else None
-            recs, t_bm, t_px = self._deflate_on_device(res.bitmap,
-                                                       res.packed, plens)
-            return ("compressed", (recs, t_bm, t_px))
+            return res
         bitmaps = np.asarray(res.bitmap)
-        out = []
-        if res.packed is not None:
-            packed = np.asarray(res.packed)
-            packed_len = np.asarray(res.packed_len)
-            for i in range(batch.shape[0]):
-                out.append((bitmaps[i].tobytes(), packed[i][: int(packed_len[i])].tobytes()))
-        else:
-            for i in range(batch.shape[0]):
-                out.append((bitmaps[i].tobytes(), None))
-        return ("raw", out)
+        if res.packed is None:
+            return [(bm.tobytes(), None) for bm in bitmaps]
+        packed = np.asarray(res.packed)
+        packed_len = np.asarray(res.packed_len)
+        return [(bitmaps[i].tobytes(), packed[i][: int(packed_len[i])].tobytes())
+                for i in range(bitmaps.shape[0])]
 
-    def _deflate_on_device(self, bitmap, packed, plens, positions=None,
-                           pos_counts=None):
-        """TPU entropy stage: deflate bitmap + packed-value streams on device.
-
-        ``plens`` — valid byte count of each frame's packed stream (None
-        when there is no value stream).  Only the compressed bytes come back
-        to the host (the raw streams are read back solely for the rare
-        stored-block fallback).  Scheme-0 output is byte-identical to the
-        native host encoder, hence to what the host path would have written;
-        scheme-12 output is valid and decodable but differs from the host
-        coder (fixed kernel lane counts, stored-only fallback — see
-        ``device_entropy`` in the ctor docstring).
-        """
-        import jax.numpy as jnp
-
-        from .codecs import dyndeflate, rans
-        from .ops import pallas_deflate as pdk
-
-        if self._scheme == 12:
-            # bitmap: GAP mode (flags 2|4) — one symbol per set bit instead
-            # of one per byte, ~1/occupancy fewer trips through the serial
-            # rANS chain; pixvals: order-0 symbol mode.  Both match the
-            # host coders byte-for-byte at the same lane count, and
-            # rans_gaps_batch_device falls back per frame (small streams,
-            # dense maps, escape runs) to the size-comparing host coder.
-            def deflate(streams, lens, raw_cb, hint_state):
-                ob = None
-                if plens is not None and self._reduction_level == 1:
-                    cnts = np.asarray(plens, np.int64) * 8 // self._bit_depth
-                    if int(cnts.max()) >= streams.shape[1]:
-                        # dense: set bits outnumber bitmap bytes, gap
-                        # coding cannot win — byte-symbol mode directly
-                        return rans.rans_symbols_batch_device(
-                            streams, lens, 8, raw_cb=raw_cb)
-                    ob = int(cnts.max()) + 4096
-                return rans.rans_gaps_batch_device(streams, lens,
-                                                   raw_cb=raw_cb,
-                                                   out_bound=ob,
-                                                   positions=positions,
-                                                   pos_counts=pos_counts)
-        else:
-            def deflate(streams, lens, raw_cb, hint_state):
-                return dyndeflate.deflate_batch_device(
-                    streams, lens, raw_cb=raw_cb, hint_state=hint_state)
-
-        B = bitmap.shape[0]
-        n_bm = bitmap.shape[1]
-        pad_bm = -(-n_bm // pdk.CH_A) * pdk.CH_A - n_bm
-        bm = jnp.pad(bitmap, ((0, 0), (0, pad_bm))) if pad_bm else bitmap
-        stt = datetime.now()
-        cbm = deflate(
-            bm, np.full(B, n_bm, np.int32),
-            lambda i: np.asarray(bitmap[i]).tobytes(),
-            self._entropy_hints["bm"])
-        t_bm = datetime.now() - stt
-
-        if packed is None:
-            return [(cbm[i], None, 0) for i in range(B)], t_bm, timedelta(0)
-
-        n_px = packed.shape[1]
-        pad_px = -(-n_px // pdk.CH_A) * pdk.CH_A - n_px
-        px = jnp.pad(packed, ((0, 0), (0, pad_px))) if pad_px else packed
-        stt = datetime.now()
-        if self._scheme == 12 and self._reduction_level == 1 \
-                and 9 <= self._bit_depth <= 12:
-            # symbol mode: pixel values coded directly as bit_depth-wide
-            # symbols (codecs/rans.rans_symbols_batch_device) — matches the
-            # host path's compress_symbols choice for peaked residuals
-            cpx = rans.rans_symbols_batch_device(
-                px, plens, self._bit_depth,
-                raw_cb=lambda i: np.asarray(
-                    packed[i, :int(plens[i])]).tobytes())
-        else:
-            cpx = deflate(
-                px, plens.astype(np.int32),
-                lambda i: np.asarray(packed[i, :int(plens[i])]).tobytes(),
-                self._entropy_hints["px"])
-        t_px = datetime.now() - stt
-        return ([(cbm[i], cpx[i], int(plens[i])) for i in range(B)],
-                t_bm, t_px)
-
-    def _finish_batch(self, batch: np.ndarray, first_abs_index: int, dispatched,
+    def _finish_batch(self, first_abs_index: int, dispatched,
                       n_in_batch: int, run_metrics: dict) -> None:
         stt = datetime.now()
-        stream_kind, streams = self._materialize_streams(batch, dispatched)
-        if stream_kind == "compressed":
-            streams, t_bm, t_px = streams
-            run_metrics["frame_binary_image_compression_time"] += t_bm
-            run_metrics["frame_pixel_intensity_compression_time"] += t_px
-            records = self._assemble_precompressed(first_abs_index,
-                                                   streams[:n_in_batch])
-        elif self._rc_operation_mode == 1 and self._compression_pool is not None \
-                and len(streams := streams[:n_in_batch]) > 1:
+        streams = self._materialize_streams(dispatched)[:n_in_batch]
+        if self._rc_operation_mode == 1 and self._compression_pool is not None \
+                and len(streams) > 1:
             records = self._assemble_records_parallel(first_abs_index, streams, run_metrics)
         else:
             records = [
                 self._assemble_record(first_abs_index + i, bitmap, pixvals, run_metrics)
-                for i, (bitmap, pixvals) in enumerate(streams[:n_in_batch])
+                for i, (bitmap, pixvals) in enumerate(streams)
             ]
         for record in records:
             self._out_buffer.append(record)
@@ -725,21 +501,6 @@ class ReCoDeWriter:
             if self._out_buffer_bytes >= self._out_buffer_limit:
                 self._flush_out_buffer()
         run_metrics["frame_time"] += datetime.now() - stt
-
-    def _assemble_precompressed(self, first_abs_index: int, streams):
-        """Build mode-1 records from device-compressed (cbm, cpx, plen)."""
-        records = []
-        for i, (cbm, cpx, plen) in enumerate(streams):
-            frame_id = int(first_abs_index + i).to_bytes(4, "little")
-            if self._reduction_level in (1, 2):
-                records.append(frame_id
-                               + len(cbm).to_bytes(4, "little")
-                               + len(cpx).to_bytes(4, "little")
-                               + int(plen).to_bytes(4, "little")
-                               + cbm + cpx)
-            else:
-                records.append(frame_id + len(cbm).to_bytes(4, "little") + cbm)
-        return records
 
     def _assemble_records_parallel(self, first_abs_index: int, streams, run_metrics):
         """Entropy-compress a batch's frames on the pool (order preserved).

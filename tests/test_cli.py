@@ -1,6 +1,7 @@
 """CLI smoke tests (in-process via cli.main)."""
 
 import numpy as np
+import pytest
 
 from pyrecode_tpu import InputParams, cli
 from pyrecode_tpu.writer import ReCoDeWriter
@@ -73,3 +74,11 @@ def test_cli_write_from_file(tmp_path, capsys):
                      "--out_dir", str(tmp_path),
                      "--params_file", str(params_file)]) == 0
     assert (tmp_path / "src.rc1_part000").exists()
+
+
+@pytest.mark.parametrize("flag,use_device", [
+    ([], True), (["--no_device"], False), (["--no_tpu"], False)])
+def test_cli_device_flag_and_its_older_alias(tmp_path, flag, use_device):
+    args = cli.build_parser().parse_args(
+        ["server", "--out_dir", str(tmp_path), "--image_filename", "run", *flag])
+    assert cli._init_params_from(args).use_device is use_device

@@ -54,7 +54,7 @@ def test_all_available_schemes_roundtrip():
 
 
 def test_every_scheme_code_executes():
-    """All 12 reference scheme codes plus the tpu-rans extension (12) must
+    """All 12 reference scheme codes plus the rANS extension (12) must
     round-trip (pure-python fallbacks serve lz4/snappy/blosc when the C
     bindings are absent)."""
     assert codecs.available_schemes() == list(range(13))

@@ -37,7 +37,7 @@ def container(tmp_path_factory):
     data = _fixture(shape=(6, 64, 64), seed=7)
     dark = np.zeros(data.shape[1:], np.uint16)
     params = _params(data.shape, num_threads=2)
-    _write_parts(tmp, data, dark, params, use_tpu=False)
+    _write_parts(tmp, data, dark, params, use_device=False)
     merged = merge_parts(str(tmp), "test_data.rc1", 2)
     with open(merged, "rb") as f:
         return merged, f.read(), data

@@ -1,7 +1,7 @@
 """Byte-parity tests for the data-parallel deflate re-formulation.
 
-The per-byte tokenization in codecs/dyndeflate.py (the oracle for the Pallas
-entropy kernels) must reproduce native deflate_sparse_dyn's sequential run
+The per-byte tokenization in codecs/dyndeflate.py (shared with the scheme-12
+rANS coder) must reproduce native deflate_sparse_dyn's sequential run
 loop byte-for-byte — including the take-adjustment that keeps match tails
 >= 3 (native/recode_host.cpp put_run / tokenizer).
 """

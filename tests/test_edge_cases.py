@@ -198,7 +198,6 @@ def test_review_regressions(tmp_path):
     """Regression coverage for review findings."""
     from pyrecode_tpu.header import ReCoDeHeader
     from pyrecode_tpu import InitParams
-    from pyrecode_tpu.ops import pallas_encode
     from pyrecode_tpu.utils import calibration
 
     # non-ASCII filenames must not change the fixed header size
@@ -212,10 +211,6 @@ def test_review_regressions(tmp_path):
     h2 = ReCoDeHeader()
     h2.load(str(path))
     assert h2.as_dict()["nz"] == 2  # fields after the name are not shifted
-
-    # >16-bit depths must not take the 16-bit-half compaction kernel
-    assert not pallas_encode.supports(64, 128, 20)
-    assert pallas_encode.supports(64, 128, 16)
 
     # accurate thresholds with expected events >= nFrames must not crash
     rng = np.random.default_rng(0)

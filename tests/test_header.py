@@ -1,17 +1,14 @@
 """Header codec tests, including golden-byte parity with the reference.
 
 The reference's header/params/structures modules are pure numpy and are
-imported directly from /root/reference (read-only) to produce golden bytes.
+imported directly from the reference tree (``reference_tree`` fixture,
+conftest.py) to produce golden bytes.
 """
-
-import sys
 
 import numpy as np
 import pytest
 
 from pyrecode_tpu import InitParams, InputParams, ReCoDeHeader
-
-sys.path.insert(0, "/root/reference")
 
 
 def _make_params(tmp_path, **overrides):
@@ -49,7 +46,7 @@ def test_v01_header_is_321_bytes():
     assert h.recode_header_length == 321
 
 
-def test_golden_bytes_vs_reference(tmp_path):
+def test_golden_bytes_vs_reference(tmp_path, reference_tree):
     """Byte-for-byte identical v0.2 header vs the reference implementation."""
     from pyrecode.recode_header import ReCoDeHeader as RefHeader
 
@@ -86,7 +83,7 @@ def test_roundtrip_serialize_load(tmp_path):
     assert d["source_file_name"] == "test_data"
 
 
-def test_load_reference_written_header(tmp_path):
+def test_load_reference_written_header(tmp_path, reference_tree):
     """We can load headers written by the reference implementation."""
     from pyrecode.recode_header import ReCoDeHeader as RefHeader
 

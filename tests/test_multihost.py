@@ -50,8 +50,7 @@ sharding = NamedSharding(mesh, P("data", None, None))
 garr = jax.make_array_from_callback(frames.shape, sharding,
                                     lambda idx: frames[idx])
 thr_g = multihost.replicate_threshold(thr, mesh)
-step = multihost.make_pallas_encode_step(mesh, out_size=2048, bucket=1,
-                                         bit_depth=12)
+step = multihost.make_encode_step(mesh, max_values=2048, bit_depth=12)
 bitmap, packed, counts, ovf = step(garr, thr_g)
 assert not bool(np.any(multihost_utils.process_allgather(ovf, tiled=True)))
 blocks = multihost.gather_ordered_blocks(bitmap, packed, counts, 12)
@@ -124,7 +123,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from pyrecode_tpu import InputParams
 from pyrecode_tpu.writer import ReCoDeWriter
 
-# ---- full per-process writer: reduce + device entropy + part file --------
+# ---- full per-process writer: device reduce + host entropy + part file ----
 rng = np.random.default_rng(5)
 data = np.where(rng.random((4, 64, 64)) < 0.04,
                 rng.integers(1, 4096, (4, 64, 64)), 0).astype(np.uint16)
@@ -140,68 +139,29 @@ params = InputParams(dict(
     target_data_type=0))
 assert params.validate()
 w = ReCoDeWriter("dist", dark_data=dark, output_directory=outdir,
-                 input_params=params, node_id=proc_id, device_entropy=True,
+                 input_params=params, node_id=proc_id, use_device=True,
                  fast_deflate=True)
 w.start()
 w.run(data)
 w.close()
 
-# ---- sharded entropy stage across BOTH processes (8-device global mesh) --
-from pyrecode_tpu import native
-from pyrecode_tpu.codecs import dyndeflate as dd
-from pyrecode_tpu.ops import pallas_deflate as pdk
-from pyrecode_tpu.parallel.multihost import make_entropy_steps
+# ---- shard_map'd encode across BOTH processes (8-device global mesh) -----
+from pyrecode_tpu import oracle
+from pyrecode_tpu.parallel import multihost
 
-if native.available():
-    mesh = Mesh(np.array(jax.devices()), ("data",))
-    n_dev = len(jax.devices())
-    npad = pdk.CH_A
-    rng2 = np.random.default_rng(7)
-    raws, streams = [], np.zeros((n_dev, npad), np.uint8)
-    lengths = np.zeros(n_dev, np.int32)
-    for i in range(n_dev):
-        n = npad - 11 - 32 * i
-        raw = (rng2.integers(0, 256, n)
-               * (rng2.random(n) < 0.06)).astype(np.uint8).tobytes()
-        raws.append(raw)
-        streams[i, :n] = np.frombuffer(raw, np.uint8)
-        lengths[i] = n
-    sh2 = NamedSharding(mesh, P("data", None))
-    sh1 = NamedSharding(mesh, P("data"))
-    st_d = jax.make_array_from_callback(streams.shape, sh2,
-                                        lambda idx: streams[idx])
-    ln_d = jax.make_array_from_callback(lengths.shape, sh1,
-                                        lambda idx: lengths[idx])
-    tokenize, assemble = make_entropy_steps(mesh, 2 * npad + 256)
-    tok_s, hist, adler = tokenize(st_d, ln_d)
-    hist_np = multihost_utils.process_allgather(hist, tiled=True)
-    adler_np = multihost_utils.process_allgather(adler, tiled=True)
-    luts = np.zeros((n_dev, 48, 32), np.float32)
-    hdrs, eobs, phases, partials = [], [], [], []
-    for i in range(n_dev):
-        hb, hbits, eob_val, eob_len, _ = native.entropy_host_tables(
-            hist_np[i, :286].astype(np.uint32), luts[i])
-        hdrs.append((hb, hbits))
-        eobs.append((eob_val, eob_len))
-        phases.append(hbits % 8)
-        partials.append(int(hb[-1]) if hbits % 8 else 0)
-    body, totbits, ovf = assemble(
-        tok_s,
-        jax.make_array_from_callback(luts.shape,
-                                     NamedSharding(mesh, P("data", None, None)),
-                                     lambda idx: luts[idx]),
-        jax.make_array_from_callback((n_dev,), sh1,
-                                     lambda idx: np.asarray(phases, np.int32)[idx]),
-        jax.make_array_from_callback((n_dev,), sh1,
-                                     lambda idx: np.asarray(partials, np.int32)[idx]))
-    assert not bool(np.any(multihost_utils.process_allgather(ovf, tiled=True)))
-    body_np = multihost_utils.process_allgather(body, tiled=True)
-    totbits_np = multihost_utils.process_allgather(totbits, tiled=True)
-    for i in range(n_dev):
-        spliced, bits2 = dd.splice_eob(body_np[i], int(totbits_np[i]), *eobs[i])
-        stream = dd.finish_stream(hdrs[i][0], hdrs[i][1], spliced, bits2,
-                                  int(adler_np[i]), len(raws[i]), raw=raws[i])
-        assert stream == native.deflate_sparse(raws[i]), i
+mesh = Mesh(np.array(jax.devices()), ("data",))
+frames = np.concatenate([data, data[::-1]])          # 8 frames, one per device
+garr = jax.make_array_from_callback(
+    frames.shape, NamedSharding(mesh, P("data", None, None)),
+    lambda idx: frames[idx])
+step = multihost.make_encode_step(mesh, max_values=64 * 64, bit_depth=12)
+bitmap, packed, counts, ovf = step(garr, multihost.replicate_threshold(dark, mesh))
+assert not bool(np.any(multihost_utils.process_allgather(ovf, tiled=True)))
+blocks = multihost.gather_ordered_blocks(bitmap, packed, counts, 12)
+if proc_id == 0:
+    for i, (bm, pv) in enumerate(blocks):
+        enc = oracle.reduce_frame(frames[i], dark, 1, 12)
+        assert bm == enc["packed_binary_map"] and pv == enc["packed_pixvals"], i
 
 multihost_utils.sync_global_devices("writer-done")
 jax.distributed.shutdown()
@@ -209,12 +169,12 @@ jax.distributed.shutdown()
 
 
 def test_two_process_full_writer_pipeline(tmp_path):
-    """VERDICT r2 missing #2 / next #3: N jax.distributed processes each run
-    the COMPLETE ReCoDeWriter (device entropy on, one part file per process),
-    the parts merge into one container that is byte-identical to a
-    single-process host-path run, and the merged container decodes
-    bit-exactly.  The deflate entropy stage is additionally shard_map'd over
-    the 8-device global mesh spanning both processes."""
+    """N jax.distributed processes each run the COMPLETE ReCoDeWriter
+    (device encode, host entropy, one part file per process), the parts
+    merge into one container that is byte-identical to a single-process
+    oracle-path run, and the merged container decodes bit-exactly.  The
+    shard_map'd encode also runs over the 8-device global mesh spanning both
+    processes, byte-identical to the oracle."""
     port = str(_free_port())
     script = tmp_path / "worker_full.py"
     script.write_text(_WORKER_FULL.format(repo=REPO))
@@ -233,7 +193,7 @@ def test_two_process_full_writer_pipeline(tmp_path):
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out.decode(errors="replace")[-3000:]
 
-    # single-process ground truth: same writers, host fast-deflate path
+    # single-process ground truth: same writers, oracle encode path
     from pyrecode_tpu import InputParams
     from pyrecode_tpu.reader import ReCoDeReader, merge_parts
     from pyrecode_tpu.writer import ReCoDeWriter
@@ -256,7 +216,7 @@ def test_two_process_full_writer_pipeline(tmp_path):
     for nid in (0, 1):
         w = ReCoDeWriter("dist", dark_data=dark, output_directory=str(ref_dir),
                          input_params=params, node_id=nid,
-                         device_entropy=False, fast_deflate=True)
+                         use_device=False, fast_deflate=True)
         w.start()
         w.run(data)
         w.close()

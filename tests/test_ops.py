@@ -1,4 +1,4 @@
-"""TPU ops vs CPU oracle: every kernel must match the oracle byte-for-byte."""
+"""Device ops vs CPU oracle: every kernel must match the oracle byte-for-byte."""
 
 import numpy as np
 import pytest
@@ -232,101 +232,3 @@ def test_bitpack_word_fastpath_matches_byte_path():
         # decode side agrees
         back = np.asarray(bitpack.bitunpack_values(got, b))
         assert np.array_equal(back[:, :n], v), b
-
-
-@pytest.mark.slow  # one 262144-value interpret build; hw-gated in verify_hw
-def test_bitpack12_pallas_matches_xla():
-    """The Pallas 12-bit pack kernel is byte-identical to bitpack_values."""
-    import jax.numpy as jnp
-    import numpy as np
-    from pyrecode_tpu.ops import bitpack
-    from pyrecode_tpu.ops.pallas_bitpack import (VALS_STEP, bitpack12_pallas,
-                                                 bitpack12_words_pallas)
-
-    rng = np.random.default_rng(5)
-    v = rng.integers(0, 4096, (1, VALS_STEP)).astype(np.uint16)
-    ref = np.asarray(bitpack.bitpack_values(jnp.asarray(v).astype(jnp.uint32),
-                                            12))
-    got = np.asarray(bitpack12_pallas(jnp.asarray(v), interpret=True))
-    assert np.array_equal(ref, got)
-    w = np.asarray(bitpack12_words_pallas(jnp.asarray(v), interpret=True))
-    assert np.array_equal(w.view(np.uint8).reshape(1, -1), ref)
-
-
-def test_bitunpack12_pallas_matches_xla():
-    """The Pallas 12-bit unpack kernel inverts the pack byte-exactly."""
-    import jax.numpy as jnp
-    import numpy as np
-    from pyrecode_tpu.ops import bitpack
-    from pyrecode_tpu.ops.pallas_bitpack import VALS_STEP, bitunpack12_pallas
-
-    rng = np.random.default_rng(6)
-    v = rng.integers(0, 4096, (2, VALS_STEP)).astype(np.uint16)
-    packed = np.asarray(
-        bitpack.bitpack_values(jnp.asarray(v).astype(jnp.uint32), 12))
-    ref = np.asarray(bitpack.bitunpack_values(jnp.asarray(packed), 12,
-                                              out_dtype=jnp.int32))
-    got = np.asarray(bitunpack12_pallas(jnp.asarray(packed), interpret=True))
-    assert np.array_equal(ref, got)
-    assert np.array_equal(got.astype(np.uint16), v)
-
-
-@pytest.mark.slow  # interpret Pallas builds; hw-gated in verify_hw
-def test_bitmap_positions_pallas():
-    """Set-bit position extraction matches flatnonzero at several
-    occupancies (with capacity-bucket escalation)."""
-    import jax.numpy as jnp
-    from pyrecode_tpu.ops.pallas_gaps import (CHUNK_BYTES,
-                                              bitmap_positions_pallas)
-
-    rng = np.random.default_rng(2)
-    for occ in (0.0, 0.01, 0.05):
-        B, NB = 2, 2 * CHUNK_BYTES
-        bits = rng.random((B, NB * 8)) < occ
-        bm = np.stack([np.packbits(bits[i], bitorder="little")
-                       for i in range(B)])
-        out_size = 1 << int(np.ceil(np.log2(
-            max(int(bits.sum(1).max()), 1) * 2 + 256)))
-        for bkt in range(3):
-            pos, cnt, ovf = bitmap_positions_pallas(
-                jnp.asarray(bm), out_size, bucket=bkt, interpret=True)
-            if not np.asarray(ovf).any():
-                break
-        assert not np.asarray(ovf).any(), occ
-        for i in range(B):
-            ref = np.flatnonzero(bits[i])
-            assert int(np.asarray(cnt)[i]) == ref.size, (occ, i)
-            assert np.array_equal(np.asarray(pos)[i, : ref.size], ref), \
-                (occ, i)
-
-
-@pytest.mark.slow  # interpret Pallas builds; hw-gated in verify_hw
-def test_decode_l1_from_positions():
-    """Positions-driven dense decode (gap-mode read chain) reproduces the
-    source frames without materializing a bitmap."""
-    import jax.numpy as jnp
-    from pyrecode_tpu.ops.pallas_decode import decode_l1_from_positions
-
-    rng = np.random.default_rng(3)
-    H = W = 256
-    B = 2
-    frames = np.where(rng.random((B, H, W)) < 0.03,
-                      rng.integers(1, 4096, (B, H, W)), 0).astype(np.uint16)
-    flat = frames.reshape(B, -1)
-    OUT = 1 << int(np.ceil(np.log2(max(int((flat > 0).sum(1).max()), 1) * 2)))
-    pos = np.zeros((B, OUT), np.int32)
-    vals = np.zeros((B, OUT), np.int32)
-    cnts = np.zeros(B, np.int32)
-    for i in range(B):
-        p = np.flatnonzero(flat[i])
-        cnts[i] = p.size
-        pos[i, : p.size] = p
-        vals[i, : p.size] = flat[i][p]
-    for bkt in range(3):
-        dense, ovf = decode_l1_from_positions(
-            jnp.asarray(pos), jnp.asarray(vals), jnp.asarray(cnts), H, W,
-            bucket=bkt, interpret=True)
-        if not np.asarray(ovf).any():
-            break
-    assert not np.asarray(ovf).any()
-    assert np.array_equal(np.asarray(dense).astype(np.uint16), frames)

@@ -1,11 +1,15 @@
-"""Fused Pallas L1/L3 encode kernel vs oracle (interpret mode on CPU)."""
+"""L1/L3 batch encode and L1 dense decode (XLA) vs the numpy oracle.
+
+The file and class names are those of the cases' first subject, a fused
+encode kernel; the same cases now hold :func:`ops.encode_frames` and
+:func:`ops.decode_l1_frames` to the oracle byte for byte.
+"""
 
 import numpy as np
 import pytest
 
 from pyrecode_tpu import oracle
-from pyrecode_tpu.ops import bitpack_values, encode_frames_auto
-from pyrecode_tpu.ops import pallas_encode
+from pyrecode_tpu.ops import decode_l1_frames, encode_frames
 
 
 def _frames(batch=2, shape=(64, 128), density=0.05, seed=0):
@@ -14,340 +18,134 @@ def _frames(batch=2, shape=(64, 128), density=0.05, seed=0):
                     rng.integers(1, 4096, (batch, *shape)), 0).astype(np.uint16)
 
 
+def _assert_l1_matches(frames, thr, res):
+    bitmap, packed = np.asarray(res.bitmap), np.asarray(res.packed)
+    counts, packed_len = np.asarray(res.counts), np.asarray(res.packed_len)
+    for i in range(frames.shape[0]):
+        enc = oracle.reduce_frame(frames[i], thr, 1, 12)
+        assert bitmap[i].tobytes() == enc["packed_binary_map"], i
+        assert int(counts[i]) == int((frames[i] > thr).sum()), i
+        plen = int(packed_len[i])
+        assert packed[i][:plen].tobytes() == enc["packed_pixvals"], i
+        assert not packed[i][plen:].any(), i
+
+
 class TestPallasKernel:
     @pytest.mark.parametrize("density", [0.0, 0.01, 0.05])
     def test_l1_matches_oracle(self, density):
         frames = _frames(density=density)
         thr = np.zeros(frames.shape[1:], np.uint16)
-        bitmap, comp, counts, ovf = pallas_encode.encode_l1_pallas(
-            frames, thr, out_size=1024, interpret=True)
-        assert not np.asarray(ovf).any()
-        bitmap, comp, counts = map(np.asarray, (bitmap, comp, counts))
-        for i in range(frames.shape[0]):
-            enc = oracle.reduce_frame(frames[i], thr, 1, 12)
-            assert bitmap[i].tobytes() == enc["packed_binary_map"]
-            mask = frames[i] > thr
-            expected = (frames[i].astype(np.int32) - thr)[mask]
-            n = int(counts[i])
-            assert n == expected.size
-            assert np.array_equal(comp[i][:n], expected)
-            assert not comp[i][n:].any()
+        res = encode_frames(frames, thr, reduction_level=1, bit_depth=12,
+                            max_values=1024)
+        assert not np.asarray(res.overflow).any()
+        _assert_l1_matches(frames, thr, res)
 
     def test_nonzero_threshold(self):
         frames = _frames(density=0.1, seed=3)
         rng = np.random.default_rng(4)
         thr = rng.integers(0, 64, size=frames.shape[1:]).astype(np.uint16)
-        bitmap, comp, counts, ovf = pallas_encode.encode_l1_pallas(
-            frames, thr, out_size=2048, interpret=True)
-        for i in range(frames.shape[0]):
-            enc = oracle.reduce_frame(frames[i], thr, 1, 12)
-            assert np.asarray(bitmap)[i].tobytes() == enc["packed_binary_map"]
-            mask = frames[i] > thr
-            expected = (frames[i].astype(np.int32) - thr.astype(np.int32))[mask]
-            n = int(np.asarray(counts)[i])
-            assert np.array_equal(np.asarray(comp)[i][:n], expected)
+        res = encode_frames(frames, thr, reduction_level=1, bit_depth=12,
+                            max_values=2048)
+        _assert_l1_matches(frames, thr, res)
 
     def test_l3_bitmap_only(self):
         frames = _frames(seed=5)
         thr = np.zeros(frames.shape[1:], np.uint16)
-        bitmap, comp, counts, ovf = pallas_encode.encode_l1_pallas(
-            frames, thr, out_size=128, with_values=False, interpret=True)
-        assert comp is None
+        res = encode_frames(frames, thr, reduction_level=3, bit_depth=12,
+                            max_values=1)
+        assert res.packed is None
         for i in range(frames.shape[0]):
             enc = oracle.reduce_frame(frames[i], thr, 3, 12)
-            assert np.asarray(bitmap)[i].tobytes() == enc["packed_binary_map"]
-            assert int(np.asarray(counts)[i]) == int((frames[i] > 0).sum())
+            assert np.asarray(res.bitmap)[i].tobytes() == enc["packed_binary_map"]
+            assert int(np.asarray(res.counts)[i]) == int((frames[i] > 0).sum())
 
     def test_overflow_flag_fires(self):
         frames = np.full((1, 16, 128), 100, dtype=np.uint16)  # fully dense
         thr = np.zeros((16, 128), np.uint16)
-        _, _, counts, ovf = pallas_encode.encode_l1_pallas(
-            frames, thr, out_size=4096, bucket=0, interpret=True)
-        # sub-row count 128 > C1=32 -> overflow
-        assert bool(np.asarray(ovf)[0])
-        # escalation bucket with C1=128 handles it... capacity 128 == count
-        _, comp, counts, ovf = pallas_encode.encode_l1_pallas(
-            frames, thr, out_size=4096, bucket=2, interpret=True)
-        assert not bool(np.asarray(ovf)[0])
-        assert int(np.asarray(counts)[0]) == 16 * 128
+        res = encode_frames(frames, thr, reduction_level=1, bit_depth=12,
+                            max_values=1024)
+        assert bool(np.asarray(res.overflow)[0])
+        # a bound that holds the frame encodes it exactly
+        res = encode_frames(frames, thr, reduction_level=1, bit_depth=12,
+                            max_values=16 * 128)
+        assert not bool(np.asarray(res.overflow)[0])
+        assert int(np.asarray(res.counts)[0]) == 16 * 128
+        _assert_l1_matches(frames, thr, res)
 
     def test_auto_escalates_and_matches(self):
-        frames = _frames(density=0.5, seed=6)  # dense: bucket 0 overflows
+        frames = _frames(density=0.5, seed=6)  # dense
         thr = np.zeros(frames.shape[1:], np.uint16)
-        res = encode_frames_auto(frames, thr, reduction_level=1, bit_depth=12,
-                                 max_values=8192)
-        for i in range(frames.shape[0]):
-            enc = oracle.reduce_frame(frames[i], thr, 1, 12)
-            assert np.asarray(res.bitmap)[i].tobytes() == enc["packed_binary_map"]
-            plen = int(np.asarray(res.packed_len)[i])
-            assert np.asarray(res.packed)[i][:plen].tobytes() == enc["packed_pixvals"]
+        res = encode_frames(frames, thr, reduction_level=1, bit_depth=12,
+                            max_values=8192)
+        _assert_l1_matches(frames, thr, res)
 
     def test_auto_falls_back_for_unsupported_width(self):
         frames = _frames(shape=(64, 96), seed=7)  # 96 % 128 != 0
         thr = np.zeros(frames.shape[1:], np.uint16)
-        res = encode_frames_auto(frames, thr, reduction_level=1, bit_depth=12,
-                                 max_values=2048)
-        enc = oracle.reduce_frame(frames[0], thr, 1, 12)
-        assert np.asarray(res.bitmap)[0].tobytes() == enc["packed_binary_map"]
+        res = encode_frames(frames, thr, reduction_level=1, bit_depth=12,
+                            max_values=2048)
+        _assert_l1_matches(frames, thr, res)
 
     def test_multi_chunk_offsets(self):
         """Counts crossing many 128-alignment boundaries stay consistent."""
         frames = _frames(batch=1, shape=(128, 128), density=0.3, seed=8)
         thr = np.zeros((128, 128), np.uint16)
-        bitmap, comp, counts, ovf = pallas_encode.encode_l1_pallas(
-            frames, thr, out_size=8192, bucket=1, interpret=True)
-        assert not np.asarray(ovf).any()
-        mask = frames[0] > thr
-        expected = (frames[0].astype(np.int32))[mask]
-        n = int(np.asarray(counts)[0])
-        assert n == expected.size
-        assert np.array_equal(np.asarray(comp)[0][:n], expected)
-        # bit-packing the compacted stream reproduces the oracle bytes
-        packed = np.asarray(bitpack_values(np.asarray(comp).astype(np.uint32), 12))
-        enc = oracle.reduce_frame(frames[0], thr, 1, 12)
-        assert packed[0][: len(enc["packed_pixvals"])].tobytes() == enc["packed_pixvals"]
+        res = encode_frames(frames, thr, reduction_level=1, bit_depth=12,
+                            max_values=8192)
+        assert not np.asarray(res.overflow).any()
+        _assert_l1_matches(frames, thr, res)
 
 
 class TestPallasDecode:
     @pytest.mark.parametrize("density", [0.0, 0.02, 0.1])
     def test_roundtrip(self, density):
-        from pyrecode_tpu.ops import pallas_decode
-
         frames = _frames(batch=2, shape=(64, 128), density=density, seed=11)
         rng = np.random.default_rng(12)
         thr = rng.integers(0, 32, size=frames.shape[1:]).astype(np.uint16)
-        bitmap, comp, counts, ovf = pallas_encode.encode_l1_pallas(
-            frames, thr, out_size=2048, interpret=True)
-        packed = np.asarray(bitpack_values(np.asarray(comp).astype(np.uint32), 12))
-        dense, dovf = pallas_decode.decode_l1_pallas(
-            np.asarray(bitmap), packed, 64, 128, 12, interpret=True)
-        assert not np.asarray(dovf).any()
+        res = encode_frames(frames, thr, reduction_level=1, bit_depth=12,
+                            max_values=2048)
+        dense = decode_l1_frames(res.bitmap, res.packed, 64, 128, 12)
         expected = np.where(frames > thr,
                             frames.astype(np.int32) - thr, 0).astype(np.uint16)
         assert np.array_equal(np.asarray(dense), expected)
 
     def test_dense_bucket_escalation(self):
-        from pyrecode_tpu.ops import pallas_decode
-
         frames = _frames(batch=1, shape=(16, 128), density=0.6, seed=13)
         thr = np.zeros(frames.shape[1:], np.uint16)
-        bitmap, comp, counts, ovf = pallas_encode.encode_l1_pallas(
-            frames, thr, out_size=4096, bucket=2, interpret=True)
-        assert not np.asarray(ovf).any()
-        packed = np.asarray(bitpack_values(np.asarray(comp).astype(np.uint32), 12))
-        # bucket 0 overflows; bucket 2 decodes
-        _, dovf0 = pallas_decode.decode_l1_pallas(
-            np.asarray(bitmap), packed, 16, 128, 12, bucket=0, interpret=True)
-        assert np.asarray(dovf0).any()
-        dense, dovf2 = pallas_decode.decode_l1_pallas(
-            np.asarray(bitmap), packed, 16, 128, 12, bucket=2, interpret=True)
-        assert not np.asarray(dovf2).any()
+        res = encode_frames(frames, thr, reduction_level=1, bit_depth=12,
+                            max_values=4096)
+        assert not np.asarray(res.overflow).any()
+        dense = decode_l1_frames(res.bitmap, res.packed, 16, 128, 12)
         assert np.array_equal(np.asarray(dense), frames)
 
 
 class TestStackedEncode:
-    """Superframe stacking: a whole batch in one grid pass (small-frame
-    throughput), values sliceable at aligned per-frame offsets."""
+    """One batch call equals encoding each frame on its own."""
 
     def test_matches_per_frame_encode(self):
-        from pyrecode_tpu import oracle
-        from pyrecode_tpu.ops import bitpack
-        from pyrecode_tpu.ops.pallas_encode import (encode_l1_stacked,
-                                                    stacked_offsets)
-
         rng = np.random.default_rng(31)
         B, H, W = 6, 64, 256
         frames = np.where(rng.random((B, H, W)) < 0.03,
                           rng.integers(1, 4096, (B, H, W)), 0).astype(np.uint16)
         thr = rng.integers(0, 8, (H, W)).astype(np.uint16)
-        counts = np.array([(f > thr).sum() for f in frames])
-
-        bitmap, comp, total, ovf = encode_l1_stacked(
-            frames, thr, per_frame_bound=int(counts.max()) + 128,
-            bucket=1, interpret=True)
-        assert not bool(np.asarray(ovf).any())
-        starts = stacked_offsets(counts)
-        comp_np = np.asarray(comp)[0]
-        bitmap_np = np.asarray(bitmap)
-
-        # one bitpack over the shared buffer; per-frame slices are aligned
-        packed = np.asarray(bitpack.bitpack_values(
-            comp.astype(np.uint32), 12))[0]
+        batch = encode_frames(frames, thr, reduction_level=1, bit_depth=12,
+                              max_values=2048)
+        _assert_l1_matches(frames, thr, batch)
         for i in range(B):
-            enc = oracle.reduce_frame(frames[i], thr, 1, 12)
-            assert bitmap_np[i].tobytes() == enc["packed_binary_map"], i
-            vals = comp_np[starts[i]: starts[i] + counts[i]]
-            mask = frames[i] > thr
-            expected_vals = (frames[i].astype(np.int64)
-                             - thr.astype(np.int64))[mask]
-            assert np.array_equal(vals, expected_vals), i
-            byte0 = starts[i] * 12 // 8
-            nbytes = (counts[i] * 12 + 7) // 8
-            assert packed[byte0: byte0 + nbytes].tobytes() == \
-                enc["packed_pixvals"], i
+            one = encode_frames(frames[i:i + 1], thr, reduction_level=1,
+                                bit_depth=12, max_values=2048)
+            assert np.array_equal(np.asarray(one.bitmap)[0],
+                                  np.asarray(batch.bitmap)[i]), i
+            assert np.array_equal(np.asarray(one.packed)[0],
+                                  np.asarray(batch.packed)[i]), i
 
     def test_empty_and_full_frames(self):
-        from pyrecode_tpu.ops.pallas_encode import (encode_l1_stacked,
-                                                    stacked_offsets)
-
         frames = np.zeros((3, 16, 128), np.uint16)
         frames[1] = 100  # every pixel foreground
         thr = np.zeros((16, 128), np.uint16)
-        counts = np.array([(f > thr).sum() for f in frames])
-        bitmap, comp, total, ovf = encode_l1_stacked(
-            frames, thr, per_frame_bound=2048, bucket=2, interpret=True)
-        assert not bool(np.asarray(ovf).any())
-        starts = stacked_offsets(counts)
-        comp_np = np.asarray(comp)[0]
-        assert counts[0] == 0 and counts[2] == 0
-        assert np.all(comp_np[starts[1]: starts[1] + counts[1]] == 100)
-
-
-def test_selection_variants_agree():
-    """Rank-match and butterfly selections are interchangeable: identical
-    compacted output on random chunks across densities (interpret mode;
-    the hardware lowering is gated by tools/probe_butterfly_full.py +
-    tools/verify_hw.py)."""
-    import numpy as np
-
-    from pyrecode_tpu.ops import pallas_encode as pe
-
-    rng = np.random.default_rng(0)
-    orig = pe._SELECT
-    try:
-        for dens in (0.02, 0.7):
-            frames = (rng.integers(1, 4096, (1, 32, 128))
-                      * (rng.random((1, 32, 128)) < dens)
-                      ).astype(np.uint16)
-            thr = np.zeros((32, 128), np.uint16)
-            outs = {}
-            for name, sel in (("rank", pe._select_rank_match),
-                              ("bfly", pe._select_butterfly)):
-                pe._SELECT = sel
-                pe._build_l1_kernel.cache_clear()
-                pe._encode_call.clear_cache()
-                bm, comp, cnt, ovf = pe.encode_l1_pallas(
-                    frames, thr, out_size=16384, bucket=2, interpret=True)
-                assert not bool(np.asarray(ovf).any()), (name, dens)
-                outs[name] = (np.asarray(bm), np.asarray(comp),
-                              np.asarray(cnt))
-            for a, b in zip(outs["rank"], outs["bfly"]):
-                assert np.array_equal(a, b), dens
-    finally:
-        pe._SELECT = orig
-        pe._build_l1_kernel.cache_clear()
-        pe._encode_call.clear_cache()
-
-
-@pytest.mark.parametrize("pos_vbits", [0, 12])
-def test_encode_with_positions_matches_flatnonzero(pos_vbits):
-    """with_positions=True appends a rank-aligned global-position stream
-    (the fused scheme-12 gap front end); pos_vbits=12 exercises the packed
-    single-select/single-concat variant."""
-    import numpy as np
-
-    from pyrecode_tpu.ops.pallas_encode import encode_l1_pallas
-
-    rng = np.random.default_rng(11)
-    H, W, B = 64, 512, 2
-    frames = (rng.integers(1, 4096, (B, H, W))
-              * (rng.random((B, H, W)) < 0.03)).astype(np.uint16)
-    thr = np.zeros((H, W), np.uint16)
-    bitmap, comp, counts, ovf, pos = encode_l1_pallas(
-        frames, thr, out_size=2048, bucket=0, interpret=True,
-        with_positions=True, pos_vbits=pos_vbits)
-    assert not np.asarray(ovf).any()
-    for i in range(B):
-        flat = frames[i].reshape(-1)
-        ref = np.flatnonzero(flat)
-        n = int(np.asarray(counts)[i])
-        assert n == ref.size
-        assert np.array_equal(np.asarray(pos)[i, :n], ref), i
-        assert np.array_equal(np.asarray(comp)[i, :n], flat[ref]), i
-    # the plain call is untouched (byte-identical output, 4-tuple)
-    b2, c2, n2, o2 = encode_l1_pallas(frames, thr, out_size=2048, bucket=0,
-                                      interpret=True)
-    assert np.array_equal(np.asarray(b2), np.asarray(bitmap))
-    assert np.array_equal(np.asarray(c2), np.asarray(comp))
-
-
-def test_encode_positions_packed_nonpow2_sub():
-    """Width 384 -> SUB=384 (not a power of two): the packed path must
-    route to rank-match-wide (butterfly's LSB-first distance consumption
-    assumes pow2 sub-rows) and still match flatnonzero."""
-    import numpy as np
-
-    from pyrecode_tpu.ops.pallas_encode import encode_l1_pallas
-
-    rng = np.random.default_rng(13)
-    H, W, B = 64, 384, 2
-    frames = (rng.integers(1, 4096, (B, H, W))
-              * (rng.random((B, H, W)) < 0.03)).astype(np.uint16)
-    thr = np.zeros((H, W), np.uint16)
-    bitmap, comp, counts, ovf, pos = encode_l1_pallas(
-        frames, thr, out_size=2048, bucket=0, interpret=True,
-        with_positions=True, pos_vbits=12)
-    assert not np.asarray(ovf).any()
-    for i in range(B):
-        flat = frames[i].reshape(-1)
-        ref = np.flatnonzero(flat)
-        n = int(np.asarray(counts)[i])
-        assert n == ref.size
-        assert np.array_equal(np.asarray(pos)[i, :n], ref), i
-        assert np.array_equal(np.asarray(comp)[i, :n], flat[ref]), i
-
-
-def test_encode_positions_packed_wide_values():
-    """Residuals >= 2^pos_vbits: the packed path keeps the low pos_vbits
-    bits (exactly what the wire's bit packer keeps, oracle.bit_pack) and
-    positions stay exact; butterfly-wide covers the C1=64 bucket."""
-    import numpy as np
-
-    from pyrecode_tpu.ops.pallas_encode import encode_l1_pallas
-
-    rng = np.random.default_rng(12)
-    H, W, B = 64, 512, 2
-    frames = (rng.integers(1, 65536, (B, H, W))
-              * (rng.random((B, H, W)) < 0.08)).astype(np.uint16)
-    thr = np.zeros((H, W), np.uint16)
-    bitmap, comp, counts, ovf, pos = encode_l1_pallas(
-        frames, thr, out_size=4096, bucket=1, interpret=True,
-        with_positions=True, pos_vbits=12)
-    assert not np.asarray(ovf).any()
-    for i in range(B):
-        flat = frames[i].reshape(-1)
-        ref = np.flatnonzero(flat)
-        n = int(np.asarray(counts)[i])
-        assert n == ref.size
-        assert np.array_equal(np.asarray(pos)[i, :n], ref), i
-        assert np.array_equal(np.asarray(comp)[i, :n],
-                              flat[ref] & 0xFFF), i
-
-
-@pytest.mark.parametrize("vbits,hw", [(13, (128, 256)), (16, (64, 512))])
-def test_encode_positions_packed_deep_values(vbits, hw):
-    """bit_depth 13-16 with packed positions (ADVICE r4 high): the
-    butterfly-wide select needs the 9-bit move distance ABOVE the
-    lane|value payload inside 30 bits, so vbits > 12 must route to
-    rank-match-wide instead of crashing at kernel build.  128x256 with
-    pos_vbits=13 is the exact reproduced crash config."""
-    from pyrecode_tpu.ops.pallas_encode import encode_l1_pallas
-
-    H, W = hw
-    rng = np.random.default_rng(vbits)
-    B = 2
-    frames = (rng.integers(1, 1 << 16, (B, H, W))
-              * (rng.random((B, H, W)) < 0.03)).astype(np.uint16)
-    thr = np.zeros((H, W), np.uint16)
-    bitmap, comp, counts, ovf, pos = encode_l1_pallas(
-        frames, thr, out_size=2048, bucket=0, interpret=True,
-        with_positions=True, pos_vbits=vbits)
-    assert not np.asarray(ovf).any()
-    mask = (1 << vbits) - 1
-    for i in range(B):
-        flat = frames[i].reshape(-1)
-        ref = np.flatnonzero(flat)
-        n = int(np.asarray(counts)[i])
-        assert n == ref.size
-        assert np.array_equal(np.asarray(pos)[i, :n], ref), i
-        assert np.array_equal(np.asarray(comp)[i, :n], flat[ref] & mask), i
+        res = encode_frames(frames, thr, reduction_level=1, bit_depth=12,
+                            max_values=2048)
+        assert not bool(np.asarray(res.overflow).any())
+        counts = np.asarray(res.counts)
+        assert counts[0] == 0 and counts[2] == 0 and counts[1] == 16 * 128
+        _assert_l1_matches(frames, thr, res)

@@ -1,11 +1,15 @@
-"""Fused L2/L4 labeling kernel vs oracle (interpret mode on CPU)."""
+"""L2/L4 batch encode (XLA labelling + segment stats) vs the numpy oracle.
+
+The file name is that of the cases' first subject, a fused labelling
+kernel; the same cases now hold :func:`ops.encode_frames` at L2 and L4 to
+the oracle byte for byte.
+"""
 
 import numpy as np
 import pytest
 
 from pyrecode_tpu import oracle
-from pyrecode_tpu.ops import encode_frames_auto
-from pyrecode_tpu.ops.pallas_label import encode_l2l4_pallas
+from pyrecode_tpu.ops import encode_frames
 
 
 def _frames(batch=2, shape=(128, 128), density=0.03, seed=0):
@@ -14,143 +18,103 @@ def _frames(batch=2, shape=(128, 128), density=0.03, seed=0):
                     rng.integers(1, 4096, (batch, *shape)), 0).astype(np.uint16)
 
 
-def _check_l2(frames, thr, bitmap, stats, counts, statistic):
+def _encode(frames, thr, level, max_values=1024, statistic="max",
+            scheme="weighted_average"):
+    return encode_frames(frames, thr, reduction_level=level, bit_depth=12,
+                         max_values=max_values, l2_statistic=statistic,
+                         l4_scheme=scheme)
+
+
+def _check_l2(frames, thr, res, statistic):
+    bitmap, packed = np.asarray(res.bitmap), np.asarray(res.packed)
+    counts, packed_len = np.asarray(res.counts), np.asarray(res.packed_len)
     for i in range(frames.shape[0]):
         enc = oracle.reduce_frame(frames[i], thr, 2, 12, l2_statistic=statistic)
-        assert np.asarray(bitmap)[i].tobytes() == enc["packed_binary_map"], i
-        labels, num = oracle.label_components(frames[i] > thr)
+        assert bitmap[i].tobytes() == enc["packed_binary_map"], i
+        _, num = oracle.label_components(frames[i] > thr)
+        assert int(counts[i]) == num, (i, int(counts[i]), num)
         # stats are over RAW frame values, not residuals (reference
-        # recode_writer.py:446 passes `frame`; oracle.reduce_frame agrees),
-        # saturated at the declared bit depth exactly like
-        # oracle.reduce_frame clamps before bit-packing
-        exp = np.minimum(oracle.l2_summary_stats(labels, frames[i], num,
-                                                 statistic), 4095)
-        n = int(np.asarray(counts)[i])
-        assert n == num, (i, n, num)
-        assert np.array_equal(np.asarray(stats)[i][:n], exp.astype(np.int64)), i
+        # recode_writer.py:446 passes `frame`), saturated at the bit depth
+        assert packed[i][:int(packed_len[i])].tobytes() == enc["packed_pixvals"], i
+
+
+def _check_l4(frames, thr, res, scheme):
+    for i in range(frames.shape[0]):
+        enc = oracle.reduce_frame(frames[i], thr, 4, 12, l4_scheme=scheme)
+        assert np.asarray(res.bitmap)[i].tobytes() == enc["packed_binary_map"], (scheme, i)
 
 
 @pytest.mark.parametrize("statistic", ["max", "sum"])
 def test_l2_matches_oracle(statistic):
     frames = _frames()
     thr = np.zeros(frames.shape[1:], np.uint16)
-    bitmap, stats, counts, ovf = encode_l2l4_pallas(
-        frames, thr, 2, out_size=1024, bit_depth=12, statistic=statistic,
-        interpret=True)
-    assert not np.asarray(ovf).any()
-    _check_l2(frames, np.zeros(frames.shape[1:], np.uint16), bitmap, stats, counts, statistic)
+    res = _encode(frames, thr, 2, statistic=statistic)
+    assert not np.asarray(res.overflow).any()
+    _check_l2(frames, thr, res, statistic)
 
 
 def test_l2_nonzero_threshold_quick():
-    """Nonzero per-pixel threshold, no escalation (K=3 handles 1%)."""
+    """Nonzero per-pixel threshold at 1% occupancy."""
     frames = _frames(seed=5, density=0.01)
     rng = np.random.default_rng(6)
     thr = rng.integers(0, 64, size=frames.shape[1:]).astype(np.uint16)
-    bitmap, stats, counts, ovf = encode_l2l4_pallas(
-        frames, thr, 2, out_size=1024, bit_depth=12, statistic="sum",
-        halo_bucket=0, interpret=True)
-    assert not np.asarray(ovf).any()
-    _check_l2(frames, thr, bitmap, stats, counts, "sum")
+    res = _encode(frames, thr, 2, statistic="sum")
+    assert not np.asarray(res.overflow).any()
+    _check_l2(frames, thr, res, "sum")
 
 
-@pytest.mark.slow  # K=8 interpret build ~30 s; hw gate covers L2 at 5%
 def test_l2_nonzero_threshold():
-    # 5% density grows accidental chains past the first halo bucket (K=3):
-    # escalate exactly like the production loop (ops/encode.py) does
+    """5% density grows accidental chains of touching pixels."""
     frames = _frames(seed=3, density=0.05)
     rng = np.random.default_rng(4)
     thr = rng.integers(0, 64, size=frames.shape[1:]).astype(np.uint16)
-    from pyrecode_tpu.ops.pallas_label import HALO_BUCKETS
-    for hb in range(len(HALO_BUCKETS)):
-        bitmap, stats, counts, ovf = encode_l2l4_pallas(
-            frames, thr, 2, out_size=2048, bit_depth=12, statistic="sum",
-            halo_bucket=hb, interpret=True)
-        if not np.asarray(ovf).any():
-            break
-    assert not np.asarray(ovf).any()
-    for i in range(frames.shape[0]):
-        enc = oracle.reduce_frame(frames[i], thr, 2, 12, l2_statistic="sum")
-        assert np.asarray(bitmap)[i].tobytes() == enc["packed_binary_map"], i
-        plen = (int(np.asarray(counts)[i]) * 12 + 7) // 8
-        from pyrecode_tpu.ops import bitpack_values
-        packed = np.asarray(bitpack_values(np.asarray(stats).astype(np.uint32), 12))
-        assert packed[i][:plen].tobytes() == enc["packed_pixvals"], i
+    res = _encode(frames, thr, 2, max_values=2048, statistic="sum")
+    assert not np.asarray(res.overflow).any()
+    _check_l2(frames, thr, res, "sum")
 
 
 @pytest.mark.parametrize("scheme", ["weighted_average", "unweighted", "max"])
 def test_l4_matches_oracle(scheme):
     frames = _frames(seed=5)
     thr = np.zeros(frames.shape[1:], np.uint16)
-    bitmap, stats, counts, ovf = encode_l2l4_pallas(
-        frames, thr, 4, out_size=1024, bit_depth=12, scheme=scheme,
-        interpret=True)
-    assert stats is None
-    assert not np.asarray(ovf).any()
-    for i in range(frames.shape[0]):
-        enc = oracle.reduce_frame(frames[i], thr, 4, 12, l4_scheme=scheme)
-        assert np.asarray(bitmap)[i].tobytes() == enc["packed_binary_map"], (scheme, i)
+    res = _encode(frames, thr, 4, scheme=scheme)
+    assert res.packed is None
+    assert not np.asarray(res.overflow).any()
+    _check_l4(frames, thr, res, scheme)
 
 
-@pytest.mark.slow  # ~30 s interpret; line-puddle test covers flag+fallback
-def test_big_puddle_overflows_small_halo():
+def test_big_puddle_labels_across_rows():
+    """A 24-row puddle: labels must propagate across the whole component."""
     frames = np.zeros((1, 32, 128), np.uint16)
-    frames[0, 4:28, 20:25] = 100  # 24 rows tall: geodesic radius > 8
+    frames[0, 4:28, 20:25] = 100
     thr = np.zeros((32, 128), np.uint16)
-    _, _, _, ovf0 = encode_l2l4_pallas(frames, thr, 2, out_size=128,
-                                       bit_depth=12, halo_bucket=0, interpret=True)
-    assert np.asarray(ovf0).any()
-    # auto path falls back to XLA and still matches the oracle
-    res = encode_frames_auto(frames, thr, reduction_level=2, bit_depth=12,
-                             max_values=1024)
-    enc = oracle.reduce_frame(frames[0], thr, 2, 12)
-    assert np.asarray(res.bitmap)[0].tobytes() == enc["packed_binary_map"]
-    plen = int(np.asarray(res.packed_len)[0])
-    assert np.asarray(res.packed)[0][:plen].tobytes() == enc["packed_pixvals"]
+    res = _encode(frames, thr, 2)
+    _check_l2(frames, thr, res, "max")
 
 
-@pytest.mark.parametrize("length", [
-    pytest.param(6, marks=pytest.mark.slow),   # same kernel build as 12;
-    12,                                        # one length in default tier
-])
+@pytest.mark.parametrize("length", [6, 12])
 @pytest.mark.parametrize("lvl,stat,scheme", [
-    # the overflow flag is computed BEFORE the mode-specific stats, so one
-    # L2 and one L4 mode cover the semantics; the other modes only re-pay
-    # interpret-mode kernel builds (~1 min) and run in the slow tier
     (2, "sum", "weighted_average"),
-    pytest.param(2, "max", "weighted_average", marks=pytest.mark.slow),
-    pytest.param(4, "max", "weighted_average", marks=pytest.mark.slow),
+    (2, "max", "weighted_average"),
+    (4, "max", "weighted_average"),
     (4, "max", "unweighted"),
 ])
-def test_line_puddle_flags_chebyshev_overflow(length, lvl, stat, scheme):
-    """A straight-line puddle can converge labels (geodesic radius <= T)
-    while exceeding the +-K stats window (Chebyshev distance > K).  The
-    kernel must flag overflow so the caller escalates; the auto path must
-    stay byte-exact via escalation / XLA fallback."""
+def test_line_puddle_is_one_component(length, lvl, stat, scheme):
+    """A straight-line puddle (long geodesic radius, one component) encodes
+    exactly at both levels."""
     frames = np.zeros((1, 64, 128), np.uint16)
     frames[0, 10, 10:10 + length] = np.arange(5, 5 + length, dtype=np.uint16)
     thr = np.zeros((64, 128), np.uint16)
-
-    _, _, _, ovf0 = encode_l2l4_pallas(
-        frames, thr, lvl, out_size=128, bit_depth=12, statistic=stat,
-        scheme=scheme, halo_bucket=0, interpret=True)
-    assert np.asarray(ovf0).any(), "K=4 bucket must flag the line puddle"
-
-    res = encode_frames_auto(frames, thr, reduction_level=lvl, bit_depth=12,
-                             max_values=1024, l2_statistic=stat,
-                             l4_scheme=scheme)
-    enc = oracle.reduce_frame(frames[0], thr, lvl, 12, l2_statistic=stat,
-                              l4_scheme=scheme)
-    assert np.asarray(res.bitmap)[0].tobytes() == enc["packed_binary_map"]
+    res = _encode(frames, thr, lvl, statistic=stat, scheme=scheme)
+    assert int(np.asarray(res.counts)[0]) == 1
     if lvl == 2:
-        plen = int(np.asarray(res.packed_len)[0])
-        assert np.asarray(res.packed)[0][:plen].tobytes() == enc["packed_pixvals"]
+        _check_l2(frames, thr, res, stat)
+    else:
+        _check_l4(frames, thr, res, scheme)
 
 
 def test_auto_uses_label_kernel_and_matches():
     frames = _frames(seed=7, shape=(64, 128))
     thr = np.zeros(frames.shape[1:], np.uint16)
-    res = encode_frames_auto(frames, thr, reduction_level=4, bit_depth=12,
-                             max_values=1024)
-    for i in range(frames.shape[0]):
-        enc = oracle.reduce_frame(frames[i], thr, 4, 12)
-        assert np.asarray(res.bitmap)[i].tobytes() == enc["packed_binary_map"], i
+    res = _encode(frames, thr, 4)
+    _check_l4(frames, thr, res, "weighted_average")

@@ -18,9 +18,9 @@ _VALID = dict(
 )
 
 
-def test_load_reference_config_file():
+def test_load_reference_config_file(reference_tree):
     p = InputParams()
-    p.load("/root/reference/config/recode_params_minimal_read_write_test.txt")
+    p.load(reference_tree / "config" / "recode_params_minimal_read_write_test.txt")
     assert p.reduction_level == 1
     assert p.rc_operation_mode == 1
     assert p.compression_scheme == 0
@@ -86,4 +86,7 @@ def test_init_params_validation(tmp_path):
         InitParams("batch", str(tmp_path))  # batch needs image_filename
     p = InitParams("stream", str(tmp_path), verbosity=9)
     assert p.verbosity == 2
-    assert p.use_tpu
+    assert p.use_device and p.use_tpu
+    # use_tpu is an older alias of use_device and wins when given
+    assert not InitParams("stream", str(tmp_path), use_device=False).use_device
+    assert not InitParams("stream", str(tmp_path), use_tpu=False).use_device

@@ -1,8 +1,8 @@
-"""TPU-rANS codec (scheme 12): numpy reference vs native, container use.
+"""rANS codec (scheme 12): numpy reference vs native, container use.
 
 The interleaved-rANS entropy backend is the zstd-class member of the
-entropy matrix (SURVEY.md §7 step 5); unlike the deflate path it device-
-decodes too (ops/pallas_rans.py, tested in interpret mode here).
+entropy matrix (SURVEY.md §7 step 5); the numpy coder is the reference for
+the native one (native/recode_host.cpp), and both decode every flavour.
 """
 
 import numpy as np
@@ -78,7 +78,7 @@ def test_container_roundtrip_scheme12(tmp_path):
     p = InputParams(values)
     assert p.validate()
     w = ReCoDeWriter("r12", dark_data=dark, output_directory=str(tmp_path),
-                     input_params=p, mode="batch", node_id=0, use_tpu=False)
+                     input_params=p, mode="batch", node_id=0, use_device=False)
     w.start()
     w.run(data)
     w.close()
@@ -92,39 +92,14 @@ def test_container_roundtrip_scheme12(tmp_path):
     # bulk path too (pooled decode excludes scheme 12's... include check)
     r = ReCoDeReader(merged)
     r.open()
-    dense = r.read_frames_dense(0, 4, use_tpu=False)
+    dense = r.read_frames_dense(0, 4, use_device=False)
     assert np.array_equal(dense, data)
     r.close()
 
 
-def test_device_pipelines_match_host(tmp_path):
-    """Device rANS encode (tokenize+compact+rANS+xbits kernels) must be
-    byte-identical to the host encoder at the same lane count, and the
-    device symbol decoder must read both."""
-    rng = np.random.default_rng(4)
-    NPAD = 2 * 16384
-    raws, streams = [], np.zeros((3, NPAD), np.uint8)
-    lengths = np.zeros(3, np.int32)
-    for i, dens in enumerate([0.02, 0.3, 0.9]):
-        n = NPAD - 9 - 100 * i
-        raw = (rng.integers(0, 256, n)
-               * (rng.random(n) < dens)).astype(np.uint8).tobytes()
-        raws.append(raw)
-        streams[i, :n] = np.frombuffer(raw, np.uint8)
-        lengths[i] = n
-    outs = rans.rans_batch_device(streams, lengths,
-                                  raw_cb=lambda i: raws[i], interpret=True)
-    for i, (raw, st) in enumerate(zip(raws, outs)):
-        assert st == rans.compress(raw, nways=1024), i
-        assert rans.decompress(st) == raw, i
-        if native.available():
-            assert native.rans_decompress(st) == raw, i
-        assert rans.rans_decompress_device(st, interpret=True) == raw, i
-
-
 def test_writer_device_entropy_scheme12(tmp_path):
-    """Writer with device_entropy + scheme 12 produces containers identical
-    to the host scheme-12 writer, and they decode bit-exactly."""
+    """The device-encode writer with scheme 12 produces containers
+    byte-identical to the oracle-path writer, and they decode bit-exactly."""
     from pyrecode_tpu import InputParams
     from pyrecode_tpu.reader import ReCoDeReader, merge_parts
     from pyrecode_tpu.writer import ReCoDeWriter
@@ -145,18 +120,18 @@ def test_writer_device_entropy_scheme12(tmp_path):
     p = InputParams(values)
     assert p.validate()
     outs = {}
-    for sub, dev in (("dev", True), ("host", False)):
+    for sub, use_device in (("dev", True), ("host", False)):
         d = tmp_path / sub
         d.mkdir()
         w = ReCoDeWriter("r12", dark_data=dark, output_directory=str(d),
                          input_params=p, mode="batch", node_id=0,
-                         use_tpu=True, device_entropy=dev)
+                         use_device=use_device)
         w.start()
         w.run(data)
         w.close()
         outs[sub] = merge_parts(str(d), "r12.rc1", 1)
-    # the device path uses W=1024 lanes; the host codec picks lanes
-    # adaptively, so sizes may differ — decoded frames must not
+    with open(outs["dev"], "rb") as a, open(outs["host"], "rb") as b:
+        assert a.read() == b.read()
     r = ReCoDeReader(outs["dev"])
     r.open()
     for i in range(3):
@@ -166,8 +141,8 @@ def test_writer_device_entropy_scheme12(tmp_path):
 
 
 def test_reader_bulk_device_decode_scheme12(tmp_path):
-    """read_frames_dense routes scheme-12 streams through the batched
-    device symbol decoder (interpret mode on CPU via _force_device_codec)."""
+    """read_frames_dense decodes scheme-12 streams with the host rANS coder
+    and rebuilds the dense frames with the device L1 decode."""
     from pyrecode_tpu import InputParams
     from pyrecode_tpu.reader import ReCoDeReader, merge_parts
     from pyrecode_tpu.writer import ReCoDeWriter
@@ -188,44 +163,16 @@ def test_reader_bulk_device_decode_scheme12(tmp_path):
     p = InputParams(values)
     assert p.validate()
     w = ReCoDeWriter("r12", dark_data=dark, output_directory=str(tmp_path),
-                     input_params=p, mode="batch", node_id=0, use_tpu=False)
+                     input_params=p, mode="batch", node_id=0, use_device=False)
     w.start()
     w.run(data)
     w.close()
     merged = merge_parts(str(tmp_path), "r12.rc1", 1)
     r = ReCoDeReader(merged)
     r.open()
-    r._force_device_codec = True      # device-decode path even off-TPU
-    dense = r.read_frames_dense(0, 5, use_tpu=True)
+    dense = r.read_frames_dense(0, 5, use_device=True)
     assert np.array_equal(dense, data)
     r.close()
-
-
-def test_batched_device_decode_of_device_streams():
-    """The batched device-decode branch itself (W_LANES streams, mixed with
-    a stored-block stream) — the path TPU bulk reads of device-written
-    containers take."""
-    rng = np.random.default_rng(9)
-    NPAD = 16384
-    raws, streams = [], np.zeros((2, NPAD), np.uint8)
-    lengths = np.zeros(2, np.int32)
-    for i, dens in enumerate([0.03, 0.4]):
-        n = NPAD - 3 - i
-        raw = (rng.integers(0, 256, n)
-               * (rng.random(n) < dens)).astype(np.uint8).tobytes()
-        raws.append(raw)
-        streams[i, :n] = np.frombuffer(raw, np.uint8)
-        lengths[i] = n
-    devs = rans.rans_batch_device(streams, lengths,
-                                  raw_cb=lambda i: raws[i], interpret=True)
-    assert all(1 << d[2] == 1024 for d in devs)  # kernel lane count
-    stored_raw = bytes(rng.integers(0, 256, 500).astype(np.uint8))
-    stored = rans.compress(stored_raw)           # incompressible -> stored
-    assert stored[3] & 1
-    batch = [devs[0], stored, devs[1]]
-    outs = rans.rans_decompress_device_batch(batch, interpret=True)
-    assert outs[0] == raws[0] and outs[2] == raws[1]
-    assert outs[1] == stored_raw
 
 
 def test_corrupt_streams_rejected():
@@ -368,8 +315,7 @@ class TestSymbolMode:
         p = InputParams(values)
         assert p.validate()
         w = ReCoDeWriter("sym", dark_data=np.zeros((64, 64), np.uint16),
-                         output_directory=str(tmp_path), input_params=p,
-                         device_entropy=False)
+                         output_directory=str(tmp_path), input_params=p)
         w.start()
         w.run(data)
         w.close()
@@ -380,63 +326,6 @@ class TestSymbolMode:
             fd = r.get_next_frame()
             assert np.array_equal(fd[i]["data"].todense(), data[i]), i
         r.close()
-
-
-def test_device_symbol_pipeline_roundtrip():
-    """Device symbol-mode encode (unpack + histogram + rANS kernels) and
-    the batched device decode both round-trip, including a mixed batch of
-    byte-mode and symbol-mode streams."""
-    from pyrecode_tpu import oracle
-    from pyrecode_tpu.codecs import rans
-
-    rng = np.random.default_rng(4)
-    streams, plens = [], []
-    for k in (70000, 8192):
-        vals = np.minimum(1 + np.floor(rng.exponential(5.0, k)), 4095)
-        raw = oracle.bit_pack(vals.astype(np.uint64), 12).tobytes()
-        streams.append(raw)
-        plens.append(len(raw))
-    NB = -(-max(plens) // 384) * 384
-    packed = np.zeros((2, NB), np.uint8)
-    for i, s in enumerate(streams):
-        packed[i, :len(s)] = np.frombuffer(s, np.uint8)
-    outs = rans.rans_symbols_batch_device(
-        packed, np.array(plens), 12, raw_cb=lambda i: streams[i],
-        interpret=True)
-    for i, (raw, got) in enumerate(zip(streams, outs)):
-        assert got[3] & 2, i
-        assert rans.decompress(got) == raw, i
-
-    # mixed batch through the reader's bulk device decode: one symbol-mode
-    # (device, W_LANES), one byte-mode, one stored
-    byte_stream = rans.compress(streams[1])
-    stored = rans._stored_stream(b"abc" * 10, __import__("zlib").adler32(b"abc" * 10))
-    decoded = rans.rans_decompress_device_batch(
-        [outs[0], byte_stream, stored], interpret=True)
-    assert decoded[0] == streams[0]
-    assert decoded[1] == streams[1]
-    assert decoded[2] == b"abc" * 10
-
-
-@pytest.mark.slow  # 2M-symbol interpret run; the same config is hw-gated
-def test_wide_interleave_symbol_streams():  # in verify_hw (b=8 n=2097152)
-    """m >= 2^21 engages the W=8192 (8-group) kernels: the format records
-    nways=8192 and host/device decodes agree."""
-    from pyrecode_tpu.codecs import rans
-
-    rng = np.random.default_rng(7)
-    raw = ((rng.integers(0, 256, 2_100_000)
-            * (rng.random(2_100_000) < 0.08)).astype(np.uint8)).tobytes()
-    NB = -(-len(raw) // 3072) * 3072
-    packed = np.zeros((1, NB), np.uint8)
-    packed[0, :len(raw)] = np.frombuffer(raw, np.uint8)
-    out = rans.rans_symbols_batch_device(packed, np.array([len(raw)]), 8,
-                                         raw_cb=lambda i: raw,
-                                         interpret=True)[0]
-    h = rans._parse_header(out)
-    assert h["nways"] == 8192
-    assert rans.decompress(out) == raw
-    assert rans.rans_decompress_device_batch([out], interpret=True)[0] == raw
 
 
 # ------------------------------------------------------------- gap mode
@@ -511,214 +400,3 @@ def test_gap_corrupt_rejected():
     if native.available():
         with pytest.raises(ValueError):
             native.rans_decompress(bytes(stream))
-
-
-def test_gap_device_batch_decode():
-    """Gap streams decode through the batched device symbol path
-    (interpret): symbols on 'device', inverse transform + adler on host."""
-    rng = np.random.default_rng(15)
-    bits = rng.random(512 * 1024) < 0.02
-    bm = np.packbits(bits, bitorder="little").tobytes()
-    stream = rans.compress_gaps(bm)
-    assert stream[3] == 6
-    got = rans.rans_decompress_device_batch([stream], interpret=True)
-    assert got[0] == bm
-    assert rans.rans_decompress_device(stream, interpret=True) == bm
-
-
-@pytest.mark.slow  # interpret Pallas builds for 4 kernels; hw-gated path
-def test_decode_l1_gap_device_full_chain():
-    """The fully-device gap read chain (gap bitmap stream + symbol pixval
-    stream -> positions-driven dense decode, NO bitmap materialization)
-    reproduces the source frames."""
-    import jax.numpy as jnp
-
-    from pyrecode_tpu import oracle
-    from pyrecode_tpu.codecs import rans
-
-    H, W, B = 128, 512, 2
-    frames = oracle.synthetic_frames(B, H, W, 0.03, 12, "peaked", rng=3)
-    thr = np.zeros((H, W), np.uint16)
-    bms, pks, plens = [], [], []
-    for i in range(B):
-        red = oracle.reduce_frame(frames[i], thr, 1, 12)
-        bms.append(np.frombuffer(red["packed_binary_map"], np.uint8))
-        pks.append(np.frombuffer(red["packed_pixvals"], np.uint8))
-        plens.append(len(red["packed_pixvals"]))
-    bm_a = np.stack(bms)
-    NP_ = -(-max(plens) // 3072) * 3072
-    pk_a = np.zeros((B, NP_), np.uint8)
-    for i in range(B):
-        pk_a[i, : plens[i]] = pks[i]
-
-    # kernel-lane (W_LANES) streams via the numpy coder: the device batch
-    # encoders only engage at m >= 65536, far too slow for interpret tests
-    import zlib
-
-    from pyrecode_tpu.ops import pallas_rans as prk
-
-    def gap_stream(bm_bytes):
-        syms = rans.bitmap_to_gaps(np.frombuffer(bm_bytes, np.uint8))
-        counts = np.bincount(syms, minlength=1 << rans.GAP_BITS)
-        freq = rans.quantize_freqs(counts).astype(np.int64)
-        body, states = rans.rans_encode_interleaved(syms, freq, prk.W_LANES)
-        sp = np.flatnonzero(counts > 0)
-        return rans._finish_stream_symbols(
-            len(bm_bytes), syms.size, prk.W_LANES, rans.GAP_BITS, sp,
-            freq[sp], states, body, zlib.adler32(bm_bytes), gap=True)
-
-    def sym_stream(pk_bytes, nvals):
-        import jax.numpy as _jnp
-
-        from pyrecode_tpu.ops import bitpack
-
-        pk_pad = np.frombuffer(pk_bytes, np.uint8)
-        if pk_pad.size % 3:
-            pk_pad = np.concatenate(
-                [pk_pad, np.zeros(3 - pk_pad.size % 3, np.uint8)])
-        vals = np.asarray(bitpack.bitunpack_values(
-            _jnp.asarray(pk_pad)[None], 12,
-            out_dtype=_jnp.int32))[0][:nvals].astype(np.int64)
-        counts = np.bincount(vals, minlength=1 << 12)
-        freq = rans.quantize_freqs(counts).astype(np.int64)
-        body, states = rans.rans_encode_interleaved(vals, freq, prk.W_LANES)
-        sp = np.flatnonzero(counts > 0)
-        return rans._finish_stream_symbols(
-            len(pk_bytes), vals.size, prk.W_LANES, 12, sp, freq[sp],
-            states, body, zlib.adler32(pk_bytes))
-
-    nvals = [(frames[i] > 0).sum() for i in range(B)]
-    bm_streams = [gap_stream(bms[i].tobytes()) for i in range(B)]
-    pk_streams = [sym_stream(pks[i].tobytes(), int(nvals[i]))
-                  for i in range(B)]
-    assert all(s[3] == 6 for s in bm_streams), "fixture must be gap mode"
-    assert all(s[3] == 2 for s in pk_streams), "fixture must be symbol mode"
-
-    dense = rans.decode_l1_gap_device(bm_streams, pk_streams, H, W,
-                                      interpret=True)
-    assert dense is not None, "gap chain unexpectedly fell back"
-    assert np.array_equal(dense, frames)
-
-    # byte-mode / host-lane streams must fall back (None), not crash
-    host_streams = [rans.compress_symbols(bm_a[i].tobytes(), 8)
-                    for i in range(B)]
-    assert rans.decode_l1_gap_device(host_streams, pk_streams, H, W,
-                                     interpret=True) is None
-
-
-def test_decode_l1_gap_device_geometry_fallback():
-    """Shapes the posdecode kernel cannot take (non-pow2 SUB, chunk px
-    beyond 15 bits) return None for the byte-path fallback instead of
-    tripping kernel asserts (ADVICE r4 medium).  The geometry check runs
-    before stream parsing, so placeholder streams suffice."""
-    from pyrecode_tpu.codecs import rans
-
-    dummy = [b"\x00" * 16]
-    # W=384 -> SUB=384, not a power of two
-    assert rans.decode_l1_gap_device(dummy, dummy, 384, 384,
-                                     interpret=True) is None
-    # W=8192 -> RPC bottoms out at 8, chunk px = 65536 > 2^15
-    assert rans.decode_l1_gap_device(dummy, dummy, 8192, 8192,
-                                     interpret=True) is None
-
-
-def test_decode_l1_gap_device_verify_opts_out():
-    """verify=True falls back to the adler-checked byte path (returns
-    None) — the gap chain never materializes bitmap bytes so it cannot
-    check stream checksums itself (ADVICE r4 low)."""
-    from pyrecode_tpu.codecs import rans
-
-    dummy = [b"\x00" * 16]
-    assert rans.decode_l1_gap_device(dummy, dummy, 128, 512,
-                                     interpret=True,
-                                     verify=True) is None
-
-
-def test_decode_l1_symbol_device_full_chain():
-    """The fully-device SYMBOL read chain (8-bit bitmap-byte symbols +
-    12-bit value symbols -> bitmap-driven dense decode) reproduces the
-    source frames — the dense-data complement of the gap chain."""
-    import zlib
-
-    import jax.numpy as jnp
-
-    from pyrecode_tpu import oracle
-    from pyrecode_tpu.codecs import rans
-    from pyrecode_tpu.ops import bitpack, pallas_rans as prk
-
-    H, W, B = 128, 512, 2
-    frames = oracle.synthetic_frames(B, H, W, 0.08, 12, "peaked", rng=9)
-    thr = np.zeros((H, W), np.uint16)
-    bm_streams, pk_streams = [], []
-    for i in range(B):
-        red = oracle.reduce_frame(frames[i], thr, 1, 12)
-        bmb = np.frombuffer(red["packed_binary_map"], np.uint8)
-        syms = bmb.astype(np.int64)
-        counts = np.bincount(syms, minlength=256)
-        freq = rans.quantize_freqs(counts).astype(np.int64)
-        body, states = rans.rans_encode_interleaved(syms, freq, prk.W_LANES)
-        sp = np.flatnonzero(counts > 0)
-        bm_streams.append(rans._finish_stream_symbols(
-            bmb.size, syms.size, prk.W_LANES, 8, sp, freq[sp], states,
-            body, zlib.adler32(bmb.tobytes())))
-        pkb = np.frombuffer(red["packed_pixvals"], np.uint8)
-        pk_pad = pkb
-        if pk_pad.size % 3:
-            pk_pad = np.concatenate(
-                [pk_pad, np.zeros(3 - pk_pad.size % 3, np.uint8)])
-        nvals = int((frames[i] > 0).sum())
-        vals = np.asarray(bitpack.bitunpack_values(
-            jnp.asarray(pk_pad)[None], 12,
-            out_dtype=jnp.int32))[0][:nvals].astype(np.int64)
-        vcounts = np.bincount(vals, minlength=1 << 12)
-        vfreq = rans.quantize_freqs(vcounts).astype(np.int64)
-        vbody, vstates = rans.rans_encode_interleaved(vals, vfreq,
-                                                      prk.W_LANES)
-        vsp = np.flatnonzero(vcounts > 0)
-        pk_streams.append(rans._finish_stream_symbols(
-            pkb.size, vals.size, prk.W_LANES, 12, vsp, vfreq[vsp],
-            vstates, vbody, zlib.adler32(pkb.tobytes())))
-    assert all(s[3] == 2 for s in bm_streams)
-
-    dense = rans.decode_l1_symbol_device(bm_streams, pk_streams, H, W,
-                                         interpret=True)
-    assert dense is not None, "symbol chain unexpectedly fell back"
-    assert np.array_equal(dense, frames)
-    # verify=True opts back into the adler-checked byte path
-    assert rans.decode_l1_symbol_device(bm_streams, pk_streams, H, W,
-                                        interpret=True, verify=True) is None
-    # gap streams must NOT take this chain
-    assert rans.decode_l1_symbol_device(
-        [rans.compress_gaps(np.zeros(H * W // 8, np.uint8).tobytes())] * B,
-        pk_streams, H, W, interpret=True) is None
-
-
-def test_fused_decode_wide_window_escalation():
-    """An incompressible 8192-way stream consumes ~1 byte/symbol — a
-    single fused grid step overruns the narrow 16-row fetch window, so
-    the in-jit lax.cond must re-run the decode at the 48-row worst case
-    and still produce exact symbols."""
-    import jax.numpy as jnp
-
-    from pyrecode_tpu.codecs import rans
-    from pyrecode_tpu.ops import pallas_rans as prk
-
-    rng = np.random.default_rng(5)
-    W8 = prk.ROWS_R * prk.W_LANES
-    m = W8 * 2                       # 2 fused steps
-    syms = rng.integers(0, 256, m).astype(np.int64)   # uniform: ~8 b/sym
-    counts = np.bincount(syms, minlength=256)
-    freq = rans.quantize_freqs(counts).astype(np.int64)
-    body, states = rans.rans_encode_interleaved(syms, freq, W8)
-    assert len(body) > 4093, "fixture must overrun the narrow window"
-
-    bw = -(-len(body) // 512) * 512
-    bodies = np.zeros((1, bw), np.uint8)
-    bodies[0, : len(body)] = np.frombuffer(body, np.uint8)[::-1]
-    tabs = prk.decode_tables_radix(freq)[None]
-    npad = -(-m // prk.CH_R) * prk.CH_R
-    out = np.asarray(prk.rans_decode_pallas(
-        jnp.asarray(bodies), jnp.asarray(states.astype(np.int32))[None],
-        np.array([m]), npad, jnp.asarray(tabs.astype(np.float32)),
-        interpret=True, groups=prk.ROWS_R))
-    assert np.array_equal(out[0, :m], syms), "wide-window rerun diverged"

@@ -15,12 +15,13 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from conftest import REFERENCE_TREE
 
 from pyrecode_tpu import InputParams
 from pyrecode_tpu.reader import merge_parts
 from pyrecode_tpu.writer import ReCoDeWriter
 
-_REF = Path("/root/reference")
+_REF = REFERENCE_TREE  # conftest.py: beside the checkout, or PYRECODE_REFERENCE
 
 
 def _build_reference_extension():

@@ -2,7 +2,7 @@
 
 The forward direction (our writer -> reference reader) lives in
 test_reference_interop.py.  This closes the loop the round-3 verdict called
-out: run the real ``/root/reference/pyrecode/recode_writer.py`` (numba path,
+out: run the real ``pyrecode/recode_writer.py`` of the reference tree (numba path,
 ``use_c=False`` — numba is shimmed to a no-op ``jit`` so the kernels execute
 as plain Python) end-to-end on the ``minimal_read_write_test`` fixture
 (reference ``tests/minimal_read_write_test.py:42-124``), then decode its
@@ -12,12 +12,12 @@ asserting bit-exact frames and identical metadata tables.
 
 import sys
 import types
-from pathlib import Path
 
 import numpy as np
 import pytest
+from conftest import REFERENCE_TREE
 
-_REF = Path("/root/reference")
+_REF = REFERENCE_TREE  # conftest.py: beside the checkout, or PYRECODE_REFERENCE
 
 
 def _shim_numba():

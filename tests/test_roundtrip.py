@@ -36,26 +36,26 @@ def _params(shape, num_threads=3, **overrides):
     return p
 
 
-def _write_parts(tmp_path, data, dark, input_params, use_tpu=True, name="test_data",
+def _write_parts(tmp_path, data, dark, input_params, use_device=True, name="test_data",
                  validation_frame_gap=-1):
     nt = input_params.num_threads
     for node_id in range(nt):
         writer = ReCoDeWriter(
             name, dark_data=dark, output_directory=str(tmp_path),
             input_params=input_params, mode="batch", node_id=node_id,
-            use_tpu=use_tpu, validation_frame_gap=validation_frame_gap)
+            use_device=use_device, validation_frame_gap=validation_frame_gap)
         writer.start()
         writer.run(data)
         writer.close()
 
 
-@pytest.mark.parametrize("use_tpu", [True, False])
-def test_minimal_read_write(tmp_path, use_tpu):
+@pytest.mark.parametrize("use_device", [True, False])
+def test_minimal_read_write(tmp_path, use_device):
     """The canonical L1+zlib multi-part round-trip."""
     data = _fixture()
     dark = np.zeros(data.shape[1:], dtype=np.uint16)
     params = _params(data.shape)
-    _write_parts(tmp_path, data, dark, params, use_tpu=use_tpu)
+    _write_parts(tmp_path, data, dark, params, use_device=use_device)
 
     # intermediate part 0 holds frames 0..2
     reader = ReCoDeReader(str(tmp_path / "test_data.rc1_part000"), is_intermediate=True)
@@ -95,11 +95,13 @@ def test_random_access_and_dense_batch(tmp_path):
     for z in (4, 1, 5, 0):
         fd = reader.get_frame(z)
         assert np.array_equal(fd[z]["data"].todense(), data[z]), z
-    # batched dense decode (TPU path)
+    # batched dense decode (device path)
     dense = reader.read_frames_dense(1, 4)
     assert np.array_equal(dense, data[1:5])
-    dense_np = reader.read_frames_dense(0, 6, use_tpu=False)
+    dense_np = reader.read_frames_dense(0, 6, use_device=False)
     assert np.array_equal(dense_np, data)
+    # the older keyword still selects the oracle decode
+    assert np.array_equal(reader.read_frames_dense(0, 6, use_tpu=False), data)
     reader.close()
 
 
@@ -241,7 +243,7 @@ def test_threshold_saturates_instead_of_wrapping(tmp_path):
     dark = np.full((16, 16), 65530, dtype=np.uint16)
     params = _params((2, 16, 16), num_threads=1, calibration_threshold_epsilon=10)
     writer = ReCoDeWriter("sat", dark_data=dark, output_directory=str(tmp_path),
-                          input_params=params, use_tpu=False)
+                          input_params=params, use_device=False)
     assert writer._threshold.dtype == np.uint16
     assert np.all(writer._threshold == 65535)  # saturated, not 65530+10-65536=4
 
@@ -261,7 +263,7 @@ def test_l2_no_spurious_pad_puddles(tmp_path):
     dark = np.zeros((32, 32), dtype=np.uint16)
     params = _params(data.shape, num_threads=1, reduction_level=2,
                      l2_statistics=1, target_bit_depth=4, source_bit_depth=4)
-    _write_parts(tmp_path, data, dark, params, use_tpu=False)
+    _write_parts(tmp_path, data, dark, params, use_device=False)
     merged = merge_parts(str(tmp_path), "test_data.rc2", 1)
     reader = ReCoDeReader(merged)
     reader.open()
@@ -274,20 +276,18 @@ def test_l2_no_spurious_pad_puddles(tmp_path):
 
 def test_scheme12_dense_reader_symbol_chain(tmp_path):
     """Dense frames make the writer pick byte/symbol-mode bitmaps (gaps
-    lose the size comparison); the reader's device path must still decode
-    them bit-exactly (via the symbol chain or its fallbacks)."""
+    lose the size comparison); the reader's host rANS decode plus device
+    L1 decode must still rebuild them bit-exactly."""
     from pyrecode_tpu import oracle
 
     data = oracle.synthetic_frames(4, 128, 512, 0.10, 12, "peaked", rng=21)
     dark = np.zeros(data.shape[1:], np.uint16)
     params = _params(data.shape, num_threads=1, compression_scheme=12)
-    _write_parts(tmp_path, data, dark, params, use_tpu=False)
+    _write_parts(tmp_path, data, dark, params, use_device=False)
     merged = merge_parts(str(tmp_path), "test_data.rc1", 1)
     r = ReCoDeReader(merged)
     r.open()
-    r._force_device_codec = True
     dense = r.read_frames_dense(0, 4)
     assert np.array_equal(dense, data)
-    dense_v = r.read_frames_dense(0, 4, verify=True)
-    assert np.array_equal(dense_v, data)
+    assert np.array_equal(r.read_frames_dense(0, 4, use_device=False), data)
     r.close()

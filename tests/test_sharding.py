@@ -1,12 +1,16 @@
 """Mesh/sharded-encode tests on the virtual 8-device CPU mesh."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
 from pyrecode_tpu import oracle
 from pyrecode_tpu.parallel import make_codec_mesh, encode_frames_sharded
 from pyrecode_tpu.parallel.multihost import (
-    gather_ordered_blocks, make_pallas_encode_step, replicate_threshold)
+    gather_ordered_blocks, make_encode_step, replicate_threshold)
+
+REPO = str(Path(__file__).resolve().parent.parent)
 
 
 def _frames(batch, shape=(32, 256), density=0.03, seed=0):
@@ -32,10 +36,12 @@ def test_shard_map_pallas_encode_and_gather():
     mesh = make_codec_mesh(8, 1)
     frames = _frames(16, seed=2)
     thr = replicate_threshold(np.zeros(frames.shape[1:], np.uint16), mesh)
-    step = make_pallas_encode_step(mesh, out_size=1024, bit_depth=12)
+    step = make_encode_step(mesh, max_values=1024, bit_depth=12)
     bitmap, packed, counts, ovf = step(frames, thr)
     assert not np.asarray(ovf).any()
     assert "data" in str(bitmap.sharding.spec)
+    # every device encoded its own shard
+    assert len({s.device for s in bitmap.addressable_shards}) == 8
 
     blocks = gather_ordered_blocks(bitmap, packed, counts, bit_depth=12)
     assert len(blocks) == 16
@@ -45,126 +51,10 @@ def test_shard_map_pallas_encode_and_gather():
         assert blocks[i][1] == enc["packed_pixvals"], i
 
 
-def test_shard_map_entropy_steps_match_native():
-    """Device-entropy tokenize+assemble shard_map'd over 8 devices, host
-    tables between: each stream's finished zlib bytes must equal the native
-    encoder's."""
-    import jax
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from pyrecode_tpu import native
-    from pyrecode_tpu.codecs import dyndeflate as dd
-    from pyrecode_tpu.ops import pallas_deflate as pdk
-    from pyrecode_tpu.parallel.multihost import make_entropy_steps
-
-    if not native.available():
-        import pytest
-        pytest.skip("native library unavailable")
-    mesh = make_codec_mesh(8, 1)
-    npad = pdk.CH_A
-    rng = np.random.default_rng(13)
-    raws, streams = [], np.zeros((8, npad), np.uint8)
-    lengths = np.zeros(8, np.int32)
-    for i in range(8):
-        n = npad - 3 - 100 * i
-        raw = (rng.integers(0, 256, n)
-               * (rng.random(n) < 0.04)).astype(np.uint8).tobytes()
-        raws.append(raw)
-        streams[i, :n] = np.frombuffer(raw, np.uint8)
-        lengths[i] = n
-    out_bound = 2 * npad + 256
-    tokenize, assemble = make_entropy_steps(mesh, out_bound)
-    st = jax.device_put(streams, NamedSharding(mesh, P("data", None)))
-    ln = jax.device_put(lengths, NamedSharding(mesh, P("data")))
-    tok, hist, adler = tokenize(st, ln)
-    hist_np, adler_np = np.asarray(hist), np.asarray(adler)
-    luts = np.zeros((8, 48, 32), np.float32)
-    metas = []
-    for i in range(8):
-        hb, hbits, ev, el, _ = native.entropy_host_tables(
-            hist_np[i, :286].astype(np.uint32), luts[i])
-        metas.append((hb, hbits, ev, el))
-    phases = np.asarray([m[1] % 8 for m in metas], np.int32)
-    partials = np.asarray([int(m[0][-1]) if m[1] % 8 else 0 for m in metas],
-                          np.int32)
-    body, totbits, ovf = assemble(
-        tok, jax.device_put(luts, NamedSharding(mesh, P("data", None, None))),
-        jax.device_put(phases, NamedSharding(mesh, P("data"))),
-        jax.device_put(partials, NamedSharding(mesh, P("data"))))
-    assert not bool(np.asarray(ovf).any())
-    body_np, tot_np = np.asarray(body), np.asarray(totbits)
-    for i in range(8):
-        hb, hbits, ev, el = metas[i]
-        spliced, bits2 = dd.splice_eob(body_np[i], int(tot_np[i]), ev, el)
-        stream = dd.finish_stream(hb, hbits, spliced, bits2,
-                                  int(adler_np[i]), len(raws[i]),
-                                  raw=raws[i])
-        assert stream == native.deflate_sparse(raws[i]), i
-
-
-def test_shard_map_rans_steps_roundtrip():
-    """Scheme-12 rANS encode + symbol decode shard_map'd over 8 devices:
-    each shard's decoded symbols must match the tokenizer reference."""
-    import jax
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from pyrecode_tpu.codecs import dyndeflate as dd
-    from pyrecode_tpu.codecs import rans as rcodec
-    from pyrecode_tpu.ops import pallas_deflate as pdk
-    from pyrecode_tpu.ops import pallas_rans as prk
-    from pyrecode_tpu.parallel.multihost import make_rans_steps
-
-    mesh = make_codec_mesh(8, 1)
-    npad = pdk.CH_A
-    rng = np.random.default_rng(17)
-    raws, streams = [], np.zeros((8, npad), np.uint8)
-    lengths = np.zeros(8, np.int32)
-    for i in range(8):
-        n = npad - 5 - 64 * i
-        raw = (rng.integers(0, 256, n)
-               * (rng.random(n) < 0.05)).astype(np.uint8).tobytes()
-        raws.append(raw)
-        streams[i, :n] = np.frombuffer(raw, np.uint8)
-        lengths[i] = n
-    tok, hist, _ = pdk.tokenize_pallas(streams, lengths, interpret=True)
-    hist_np = np.asarray(hist)
-    tok_counts = hist_np[:, :286].sum(axis=1).astype(np.int32)
-    dense, _, covf = pdk.compact_tokens(tok, prk.CH_R, bucket=1,
-                                        interpret=True)
-    assert not bool(np.asarray(covf).any())
-    freqs = [rcodec.quantize_freqs(hist_np[i, :286].astype(np.int64))
-             for i in range(8)]
-    eluts = np.stack([prk.encode_luts_radix(f) for f in freqs])
-    tabs = np.stack([prk.decode_tables_radix(f) for f in freqs])
-    out_bound = 2 * prk.CH_R + 4096
-    encode, decode = make_rans_steps(mesh, out_bound, prk.CH_R)
-    s1 = NamedSharding(mesh, P("data"))
-    s2 = NamedSharding(mesh, P("data", None))
-    s3 = NamedSharding(mesh, P("data", None, None))
-    body, states, cnts = encode(jax.device_put(np.asarray(dense), s2),
-                                jax.device_put(eluts.astype(np.float32), s3),
-                                jax.device_put(tok_counts, s1))
-    rb, rc = np.asarray(body), np.asarray(cnts)
-    bw = -(-max(int(rc.max()), 4) // 512) * 512
-    bodies_rev = np.zeros((8, bw), np.uint8)
-    for i in range(8):
-        bodies_rev[i, : rc[i]] = rb[i, : rc[i]].astype(np.uint8)[::-1]
-    syms = np.asarray(decode(
-        jax.device_put(bodies_rev, s2),
-        jax.device_put(np.asarray(states, np.int32), s2),
-        jax.device_put(tok_counts, s1),
-        jax.device_put(tabs.astype(np.float32), s3)))
-    for i in range(8):
-        lut_idx, _ = dd.tokenize_bytes_np(np.frombuffer(raws[i], np.uint8))
-        ref_syms, _, _ = rcodec._token_syms_and_extras(lut_idx)
-        assert np.array_equal(syms[i, : tok_counts[i]], ref_syms), i
-
-
 @pytest.mark.slow
 def test_dryrun_multichip_16():
-    """The v5e-16 target config: the full multi-chip dryrun (training-step
-    equivalent) compiles and executes on a 16-virtual-device mesh
-    (VERDICT r4 ask #8 — the 16-device point was never run)."""
+    """The full multi-device dry run compiles and executes on a
+    16-virtual-device mesh."""
     import subprocess
     import sys as _sys
 
@@ -178,5 +68,5 @@ def test_dryrun_multichip_16():
         env={**__import__('os').environ,
              'XLA_FLAGS': '--xla_force_host_platform_device_count=16',
              'JAX_PLATFORMS': 'cpu'},
-        cwd='/root/repo')
+        cwd=REPO)
     assert 'DRYRUN16 OK' in proc.stdout, proc.stderr[-2000:]

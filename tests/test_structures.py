@@ -1,12 +1,8 @@
 """Per-frame metadata schema tests, incl. parity with the reference module."""
 
-import sys
-
 import numpy as np
 
 from pyrecode_tpu import ReCoDeStructures
-
-sys.path.insert(0, "/root/reference")
 
 
 _HEADER = {"nx": 512, "ny": 512}
@@ -19,7 +15,7 @@ def test_binary_image_size():
     assert s2.binary_image_sz_bytes == (81 + 7) // 8
 
 
-def test_metadata_sizes_match_reference():
+def test_metadata_sizes_match_reference(reference_tree):
     from pyrecode.structures import ReCoDeStructures as RefStructures
 
     ours = ReCoDeStructures(_HEADER)
@@ -33,7 +29,7 @@ def test_metadata_sizes_match_reference():
             assert ours_fields == ref_fields, (level, mode)
 
 
-def test_frame_data_sizes_match_reference():
+def test_frame_data_sizes_match_reference(reference_tree):
     from pyrecode.structures import ReCoDeStructures as RefStructures
 
     ours = ReCoDeStructures(_HEADER)

@@ -6,15 +6,12 @@ v0.1 merged file (via the reference's own header serializer where importable)
 and decode it with our reader.
 """
 
-import sys
 import zlib
 
 import numpy as np
 
 from pyrecode_tpu import InitParams, InputParams, oracle
 from pyrecode_tpu.reader import ReCoDeReader
-
-sys.path.insert(0, "/root/reference")
 
 
 def _build_v01_file(tmp_path, frames, use_reference_header=True):
@@ -69,7 +66,7 @@ def _build_v01_file(tmp_path, frames, use_reference_header=True):
     return path
 
 
-def test_read_v01_file_reference_header(tmp_path):
+def test_read_v01_file_reference_header(tmp_path, reference_tree):
     rng = np.random.default_rng(0)
     frames = np.where(rng.random((3, 64, 64)) < 0.05,
                       rng.integers(1, 4096, (3, 64, 64)), 0).astype(np.uint16)
