@@ -52,6 +52,11 @@ HBM_BYTES_PER_S = {"NVIDIA H100 80GB HBM3": 3.35e12}
 BIT_DEPTH = 12
 EPSILON = 2
 BATCH = 32  # the writer's default buffer_size_in_frames
+SIZE = 4096  # frame width and height of the flagship 4096^2 detector
+SERVED_FRAMES = 96  # L1 scheme-0 run: a full 32-frame batch for each of 3 nodes
+VARIANT_FRAMES = 12  # scheme-12, L2 and L4 runs
+FOUR_CARD_FRAMES = 32
+SEED = 0
 
 
 def log(*parts) -> None:
@@ -395,12 +400,6 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--four-cards", action="store_true",
                         help="run only the sharded phase on four cards")
-    parser.add_argument("--frames", type=int, default=96,
-                        help="frames of the L1 scheme-0 served run (>= 96 gives "
-                             "each of the three nodes a full 32-frame batch)")
-    parser.add_argument("--variant-frames", type=int, default=12)
-    parser.add_argument("--size", type=int, default=4096)
-    parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
 
     devices = require_gpu()
@@ -417,7 +416,7 @@ def main(argv=None) -> int:
 
     if args.four_cards:
         t0 = time.perf_counter()
-        frames, dark = make_inputs(32, args.size, args.seed)
+        frames, dark = make_inputs(FOUR_CARD_FRAMES, SIZE, SEED)
         log(f"smoke timing [setup]: frames generated in {time.perf_counter() - t0:.3f} s")
         phase_four_cards(frames, dark)
         count = 4
@@ -425,13 +424,13 @@ def main(argv=None) -> int:
         if kind not in HBM_BYTES_PER_S:
             raise SystemExit(f"no HBM peak on record for {kind!r}")
         t0 = time.perf_counter()
-        frames, dark = make_inputs(args.frames, args.size, args.seed)
+        frames, dark = make_inputs(SERVED_FRAMES, SIZE, SEED)
         log(f"smoke timing [setup]: frames generated in {time.perf_counter() - t0:.3f} s")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             work = Path(tmp)
             compiled = phase_served(frames, dark, work, "L1 scheme 0")
             log("encode step memory_analysis:", compiled.memory_analysis())
-            few = frames[:args.variant_frames]
+            few = frames[:VARIANT_FRAMES]
             phase_served(few, dark, work, "L1 scheme 12", scheme=12)
             phase_served(few, dark, work, "L2 sum", level=2, l2_statistics=2)
             phase_served(few, dark, work, "L4 weighted", level=4, l4_centroiding=0)

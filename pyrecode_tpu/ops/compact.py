@@ -6,12 +6,9 @@ of foreground pixel values, whose length is data-dependent.  The compaction
 keeps shapes static by writing into a max-bound buffer and returning the true
 count separately.
 
-Two interchangeable strategies are provided; both are jittable and batched:
-
-* ``scatter``: positions via exclusive cumsum of the mask, then a single
-  1-D scatter with out-of-bounds drop.  O(N), the default.
-* ``sort``: a stable key sort that moves foreground values to the front.
-  O(N log N); kept as an independent formulation to compare against.
+Positions come from an inclusive cumsum of the mask; one 1-D scatter per row
+with out-of-bounds drop then writes the foreground values.  O(N), jittable
+and batched.
 
 Elements beyond the true count are zero, which downstream bit-packing relies
 on (the reference zero-initializes its pack buffers, reader.h:117-120).
@@ -25,9 +22,8 @@ import jax
 import jax.numpy as jnp
 
 
-@partial(jax.jit, static_argnames=("out_size", "method"))
-def stream_compact(values: jax.Array, mask: jax.Array, out_size: int,
-                   method: str = "scatter"):
+@partial(jax.jit, static_argnames=("out_size",))
+def stream_compact(values: jax.Array, mask: jax.Array, out_size: int):
     """Compact ``values[mask]`` (row-major order) into a zero-padded buffer.
 
     Parameters
@@ -45,27 +41,15 @@ def stream_compact(values: jax.Array, mask: jax.Array, out_size: int,
     """
     mask = mask.astype(jnp.bool_)
     count = jnp.sum(mask, axis=-1).astype(jnp.int32)
+    pos = jnp.cumsum(mask, axis=-1, dtype=jnp.int32) - 1
+    # out-of-range index drops the element (background and overflow alike)
+    idx = jnp.where(mask, pos, out_size)
 
-    if method == "scatter":
-        pos = jnp.cumsum(mask, axis=-1, dtype=jnp.int32) - 1
-        # out-of-range index drops the element (background and overflow alike)
-        idx = jnp.where(mask, pos, out_size)
+    def _scatter_1d(vals, indices):
+        out = jnp.zeros((out_size,), dtype=vals.dtype)
+        return out.at[indices].set(vals, mode="drop", unique_indices=True)
 
-        def _scatter_1d(vals, indices):
-            out = jnp.zeros((out_size,), dtype=vals.dtype)
-            return out.at[indices].set(vals, mode="drop", unique_indices=True)
-
-        flat_vals = values.reshape(-1, values.shape[-1])
-        flat_idx = idx.reshape(-1, idx.shape[-1])
-        out = jax.vmap(_scatter_1d)(flat_vals, flat_idx)
-        return out.reshape(*values.shape[:-1], out_size), count
-
-    if method == "sort":
-        n = values.shape[-1]
-        # stable: foreground keeps row-major order at the front
-        key = jnp.where(mask, jnp.int32(0), jnp.int32(1))
-        zeroed = jnp.where(mask, values, jnp.zeros_like(values))
-        _, sorted_vals = jax.lax.sort_key_val(key, zeroed, dimension=-1, is_stable=True)
-        return sorted_vals[..., :out_size], count
-
-    raise ValueError(f"Unknown compaction method: {method}")
+    flat_vals = values.reshape(-1, values.shape[-1])
+    flat_idx = idx.reshape(-1, idx.shape[-1])
+    out = jax.vmap(_scatter_1d)(flat_vals, flat_idx)
+    return out.reshape(*values.shape[:-1], out_size), count

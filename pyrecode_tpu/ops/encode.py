@@ -71,11 +71,10 @@ def _pack_mask_batch(mask: jax.Array) -> jax.Array:
 
 
 @partial(jax.jit, static_argnames=("reduction_level", "bit_depth", "max_values",
-                                   "l2_statistic", "l4_scheme", "compact_method"))
+                                   "l2_statistic", "l4_scheme"))
 def encode_frames(frames: jax.Array, threshold: jax.Array, reduction_level: int,
                   bit_depth: int, max_values: int, l2_statistic: str = "max",
-                  l4_scheme: str = "weighted_average",
-                  compact_method: str = "scatter") -> EncodeResult:
+                  l4_scheme: str = "weighted_average") -> EncodeResult:
     """Encode a batch of frames at the given reduction level.
 
     Parameters
@@ -97,7 +96,7 @@ def encode_frames(frames: jax.Array, threshold: jax.Array, reduction_level: int,
         residual = ((frames - threshold[None]) * mask.astype(frames.dtype))
         n_pad = _pad_to_group(max_values, bit_depth)
         compacted, counts = stream_compact(
-            residual.reshape(B, -1), mask.reshape(B, -1), n_pad, method=compact_method)
+            residual.reshape(B, -1), mask.reshape(B, -1), n_pad)
         packed = bitpack_values(compacted, bit_depth)
         packed_len = (counts * bit_depth + 7) // 8
         return EncodeResult(

@@ -50,12 +50,13 @@ class TestBitpackOps:
 
 
 class TestCompact:
-    @pytest.mark.parametrize("method", ["scatter", "sort"])
-    def test_matches_numpy(self, method):
+    @pytest.mark.parametrize("dtype", [np.uint16, np.uint32])
+    def test_matches_numpy(self, dtype):
         rng = np.random.default_rng(4)
-        vals = rng.integers(0, 4096, size=(3, 500), dtype=np.uint16)
+        vals = rng.integers(0, 4096, size=(3, 500)).astype(dtype)
         mask = rng.random((3, 500)) > 0.8
-        out, counts = ops.stream_compact(vals, mask, out_size=200, method=method)
+        out, counts = ops.stream_compact(vals, mask, out_size=200)
+        assert out.dtype == dtype
         out, counts = np.asarray(out), np.asarray(counts)
         for i in range(3):
             expected = vals[i][mask[i]]
@@ -63,13 +64,15 @@ class TestCompact:
             assert np.array_equal(out[i][: expected.size], expected)
             assert not out[i][expected.size:].any()
 
-    @pytest.mark.parametrize("method", ["scatter", "sort"])
-    def test_overflow_drops_tail(self, method):
-        vals = np.arange(100, dtype=np.uint16).reshape(1, 100) + 1
-        mask = np.ones((1, 100), dtype=bool)
-        out, counts = ops.stream_compact(vals, mask, out_size=10, method=method)
-        assert counts[0] == 100  # true count still reported
-        assert np.array_equal(np.asarray(out)[0], np.arange(1, 11, dtype=np.uint16))
+    @pytest.mark.parametrize("batch_shape", [(1,), (2, 3)])
+    def test_overflow_drops_tail(self, batch_shape):
+        vals = np.broadcast_to(np.arange(1, 101, dtype=np.uint16), (*batch_shape, 100))
+        mask = np.ones((*batch_shape, 100), dtype=bool)
+        out, counts = ops.stream_compact(vals, mask, out_size=10)
+        assert counts.shape == batch_shape
+        assert (np.asarray(counts) == 100).all()  # true count still reported
+        assert np.array_equal(np.asarray(out),
+                              np.broadcast_to(np.arange(1, 11, dtype=np.uint16), (*batch_shape, 10)))
 
 
 class TestCCLabel:

@@ -73,9 +73,14 @@ def test_l2_nonzero_threshold():
     _check_l2(frames, thr, res, "sum")
 
 
-@pytest.mark.parametrize("scheme", ["weighted_average", "unweighted", "max"])
-def test_l4_matches_oracle(scheme):
-    frames = _frames(seed=5)
+@pytest.mark.parametrize("scheme,shape,seed", [
+    ("weighted_average", (128, 128), 5),
+    ("unweighted", (128, 128), 5),
+    ("max", (128, 128), 5),
+    ("weighted_average", (64, 128), 7),
+])
+def test_l4_matches_oracle(scheme, shape, seed):
+    frames = _frames(seed=seed, shape=shape)
     thr = np.zeros(frames.shape[1:], np.uint16)
     res = _encode(frames, thr, 4, scheme=scheme)
     assert res.packed is None
@@ -111,10 +116,3 @@ def test_line_puddle_is_one_component(length, lvl, stat, scheme):
         _check_l2(frames, thr, res, stat)
     else:
         _check_l4(frames, thr, res, scheme)
-
-
-def test_auto_uses_label_kernel_and_matches():
-    frames = _frames(seed=7, shape=(64, 128))
-    thr = np.zeros(frames.shape[1:], np.uint16)
-    res = _encode(frames, thr, 4)
-    _check_l4(frames, thr, res, "weighted_average")

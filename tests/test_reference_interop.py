@@ -15,18 +15,17 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-from conftest import REFERENCE_TREE
+from conftest import REFERENCE_TREE, require_reference_tree
 
 from pyrecode_tpu import InputParams
 from pyrecode_tpu.reader import merge_parts
 from pyrecode_tpu.writer import ReCoDeWriter
 
-_REF = REFERENCE_TREE  # conftest.py: beside the checkout, or PYRECODE_REFERENCE
+_REF = REFERENCE_TREE  # conftest.py: the tree PYRECODE_REFERENCE names, or None
 
 
 def _build_reference_extension():
-    if not _REF.exists():
-        pytest.skip("reference tree unavailable")
+    require_reference_tree()
     build_dir = Path(tempfile.gettempdir()) / "pyrecode_ref_ext"
     so = build_dir / "c_recode.so"
     if not so.exists():

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 from conftest import REFERENCE_TREE
 
-_REF = REFERENCE_TREE  # conftest.py: beside the checkout, or PYRECODE_REFERENCE
+_REF = REFERENCE_TREE  # conftest.py: the tree PYRECODE_REFERENCE names, or None
 
 
 def _shim_numba():
